@@ -1,0 +1,140 @@
+// K1: (Gaussian, tile) pair expansion with the exact ellipse-vs-tile cull.
+//
+// Replaces the TPU kernel priordepth_gaussiansplatting_tpu/ops/binning.py
+// ::_expand_attrs_kernel_factory (launched from _bin_sorted_core).
+//
+// What it computes, for every pair slot pos < min(total, p_cap):
+//   * the owning Gaussian j in depth order: the last j whose exclusive pair
+//     offset is <= pos (upper_bound - 1 over the ascending offsets; empty
+//     rects sit at the tail with offset == total and are never chosen);
+//   * rank = pos - offset_j, tile = base_j + (rank / nx_j) * grid_x
+//     + rank % nx_j, all in integer arithmetic;
+//   * j's 10 attribute rows (ATTR_* order), copied to the slot;
+//   * the cull: keep the pair iff the minimum of j's conic quadratic over
+//     the tile's 16x16 pixel box is <= 2 ln(255 op) + 1e-3 (the same closed
+//     form and slack as the TPU kernel, in f32);
+//   * tile id (num_tiles when culled or for padding slots), Gaussian id,
+//     attributes, and a per-tile histogram of kept pairs (int32 atomics,
+//     which are exact, so the histogram is deterministic).
+// Slots pos >= min(total, p_cap) get tile num_tiles, id -1 and zero rows.
+// The output index is pos, so a stable sort by tile id afterwards gives
+// depth order within each tile, exactly the TPU kernel's pair order.
+//
+// Bound on the H100: bytes. Each slot writes 12 words and reads its owner's
+// 14 words (mostly from L2, neighbouring slots share owners); the cull is
+// ~70 f32 operations per slot, far below the byte time. Design: one thread
+// per slot with a binary search for the owner, so the load is balanced
+// whatever a Gaussian's rect size (one thread per Gaussian would leave a
+// warp waiting on its largest rect). The TPU kernel's windowed DMA, its
+// compare-matrix ranking and its one-hot MXU gathers have no counterpart:
+// the search reads the offsets directly. Writes are coalesced row by row.
+//
+// Built with -fmad=false: the cull must round exactly as the plain PyTorch
+// version (and the TPU reference) do, and a contracted multiply-add would
+// round once where they round twice.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 16;
+constexpr int kRows = 10;
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ float q_at(float ca, float cb, float cc, float dx,
+                                      float dy) {
+  return ca * dx * dx + 2.0f * cb * dx * dy + cc * dy * dy;
+}
+
+__global__ void __launch_bounds__(kThreads) expand_pairs_kernel(
+    const int* __restrict__ offsets, const int* __restrict__ base,
+    const int* __restrict__ nx, const int* __restrict__ gid,
+    const float* __restrict__ attrs, const int* __restrict__ total, int n,
+    int p_cap, int grid_x, int num_tiles, int* __restrict__ tile_out,
+    int* __restrict__ gid_out, float* __restrict__ attrs_out,
+    int* __restrict__ hist) {
+  const int pos = blockIdx.x * kThreads + threadIdx.x;
+  if (pos >= p_cap) return;
+  const int tot = min(*total, p_cap);
+  const size_t p = (size_t)p_cap;
+  if (pos >= tot) {
+    tile_out[pos] = num_tiles;
+    gid_out[pos] = -1;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) attrs_out[r * p + pos] = 0.0f;
+    return;
+  }
+  // upper_bound(offsets[0, n), pos) - 1: the last offset <= pos.
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (offsets[mid] <= pos) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const int j = lo - 1;
+  const int rank = pos - offsets[j];
+  const int w = nx[j];
+  const int q = rank / w;
+  const int tile = base[j] + q * grid_x + (rank - q * w);
+
+  float a[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) a[r] = attrs[(size_t)r * n + j];
+  const float mx = a[0], my = a[1], ca = a[2], cb = a[3], cc = a[4],
+              op = a[5];
+
+  const int ty = tile / grid_x;
+  const int tx = tile - ty * grid_x;
+  const float dxl = (float)(tx * kTile) - mx;
+  const float dxh = dxl + (float)(kTile - 1);
+  const float dyl = (float)(ty * kTile) - my;
+  const float dyh = dyl + (float)(kTile - 1);
+  const bool inside = (dxl <= 0.0f) && (dxh >= 0.0f) && (dyl <= 0.0f) &&
+                      (dyh >= 0.0f);
+  const float ica = 1.0f / fmaxf(ca, 1e-12f);
+  const float icc = 1.0f / fmaxf(cc, 1e-12f);
+  const float qx0 = q_at(ca, cb, cc, dxl, clampf(-cb * dxl * icc, dyl, dyh));
+  const float qx1 = q_at(ca, cb, cc, dxh, clampf(-cb * dxh * icc, dyl, dyh));
+  const float qy0 = q_at(ca, cb, cc, clampf(-cb * dyl * ica, dxl, dxh), dyl);
+  const float qy1 = q_at(ca, cb, cc, clampf(-cb * dyh * ica, dxl, dxh), dyh);
+  const float qmin =
+      inside ? 0.0f : fminf(fminf(qx0, qx1), fminf(qy0, qy1));
+  const float tau = 2.0f * logf(fmaxf(op, 1e-12f) * 255.0f);
+  const bool hit = qmin <= tau + 1e-3f;
+
+  tile_out[pos] = hit ? tile : num_tiles;
+  gid_out[pos] = gid[j];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) attrs_out[r * p + pos] = a[r];
+  if (hit) atomicAdd(&hist[tile], 1);
+}
+
+}  // namespace
+
+extern "C" int expand_pairs_launch(
+    const void* offsets, const void* base, const void* nx, const void* gid,
+    const void* attrs, const void* total, int n, int p_cap, int grid_x,
+    int num_tiles, void* tile_out, void* gid_out, void* attrs_out, void* hist,
+    void* stream) {
+  if (p_cap > 0) {
+    const int blocks = (p_cap + kThreads - 1) / kThreads;
+    expand_pairs_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)offsets, (const int*)base, (const int*)nx,
+        (const int*)gid, (const float*)attrs, (const int*)total, n, p_cap,
+        grid_x, num_tiles, (int*)tile_out, (int*)gid_out, (float*)attrs_out,
+        (int*)hist);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* expand_pairs_error(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,57 @@
+"""The hand-written CUDA kernels: launch, launch counts, error checks.
+
+Each wrapper in ``ops/`` calls :func:`launch` for a CUDA tensor; that is the
+only place a kernel is launched and the only place its count grows.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+KERNELS = ("expand_pairs", "gather_rows", "composite_fwd")
+
+_launches = dict.fromkeys(KERNELS, 0)
+
+ptr = ctypes.c_void_p
+i32 = ctypes.c_int
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches since the last reset}."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def launch(name: str, argtypes, *args) -> None:
+    """Launch kernel `name` on the current stream and count it.
+
+    `args` are the C entry point's arguments without the trailing stream:
+    tensors are passed as their data pointers. Raises if the launch was
+    refused (the C function returns cudaGetLastError())."""
+    lib = build.load(name, list(argtypes) + [ptr])
+    stream = torch.cuda.current_stream().cuda_stream
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    rc = getattr(lib, f"{name}_launch")(*cargs, stream)
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error")(rc).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({rc}): {msg}")
+    _launches[name] += 1
+
+
+def check_cuda(name: str, **tensors) -> None:
+    """Raise unless every tensor lies on one CUDA device and is contiguous."""
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name}: tensors must share one CUDA device, got "
+                         f"{sorted(map(str, devices))}")
+    for arg, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")

@@ -1,0 +1,241 @@
+"""Per-Gaussian preprocessing: frustum cull, EWA 3D->2D covariance, conic,
+radius, SH colour, inverse depth (counterpart of the JAX package's
+``ops/projection.py``).
+
+Numerical contract, as in the JAX package:
+  * cull when camera-space z <= 0.2 (and rows outside ``valid_mask``);
+  * J uses t.x/t.y clamped to +-1.3 tan(fov/2) z;
+  * the 2D covariance is dilated by +0.3 on the diagonal;
+  * antialiasing scales opacity by sqrt(max(2.5e-5, det(S)/det(S + 0.3 I)));
+  * radius = ceil(3 sqrt(lambda_max)), lambda from mid + sqrt(max(0.1, mid^2 - det));
+  * pixel coordinates ((v + 1) S - 1) / 2;
+  * mean2d stays f32; conic, opacity, rgb and inverse depth are rounded
+    once to bf16 (RTNE), kept in f32 tensors.
+Geometry products run in full f32: TF32 is switched off where they are
+computed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..core import sh as shlib
+
+FRUSTUM_NEAR_Z = 0.2
+DILATION = 0.3
+AA_DET_FLOOR = 2.5e-5
+LAMBDA_FLOOR = 0.1
+TILE = 16
+
+
+def _round_bf16_bits(x: torch.Tensor) -> torch.Tensor:
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    rounded = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    nonfinite = (u & 0x7F800000) == 0x7F800000
+    out = torch.where(nonfinite, u, rounded)
+    out = torch.where(out >= 2 ** 31, out - 2 ** 32, out)
+    return out.to(torch.int32).view(torch.float32)
+
+
+class RoundBF16(torch.autograd.Function):
+    """Round f32 to the nearest bf16 value (RTNE), staying f32, by bit
+    arithmetic; NaN and Inf pass through unchanged. The backward is the
+    identity in f32 (straight-through): a dtype round trip would also round
+    the gradient to bf16."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _round_bf16_bits(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    return RoundBF16.apply(x)
+
+
+@dataclasses.dataclass
+class ProjectedGaussians:
+    """Screen-space Gaussians ready for binning and compositing."""
+
+    mean2d: torch.Tensor    # (N, 2) pixel coordinates
+    conic: torch.Tensor     # (N, 3) inverse 2D covariance (a, b, c)
+    opacity: torch.Tensor   # (N,) post-activation, AA-rescaled
+    rgb: torch.Tensor       # (N, 3)
+    depth: torch.Tensor     # (N,) camera-space z; inf when culled
+    invdepth: torch.Tensor  # (N,) 1/z
+    radius: torch.Tensor    # (N,) int32 screen radius in pixels; 0 = culled
+
+    def replace(self, **kw) -> "ProjectedGaussians":
+        return dataclasses.replace(self, **kw)
+
+
+def compute_cov2d(mean3d, cov3d, viewmatrix, focal_x, focal_y,
+                  tan_fovx, tan_fovy):
+    """EWA splatting: (N, 2, 2) un-dilated J W S W^T J^T and the (N, 3)
+    camera-space positions."""
+    W = viewmatrix[:3, :3]
+    t = mean3d @ W.T + viewmatrix[:3, 3]
+    tz = t[:, 2]
+    limx = 1.3 * tan_fovx
+    limy = 1.3 * tan_fovy
+    txz = torch.clamp(t[:, 0] / tz, -limx, limx) * tz
+    tyz = torch.clamp(t[:, 1] / tz, -limy, limy) * tz
+    inv_z = 1.0 / tz
+    inv_z2 = inv_z * inv_z
+    zeros = torch.zeros_like(tz)
+    j0 = torch.stack([focal_x * inv_z, zeros, -focal_x * txz * inv_z2], -1)
+    j1 = torch.stack([zeros, focal_y * inv_z, -focal_y * tyz * inv_z2], -1)
+    t0 = j0 @ W
+    t1 = j1 @ W
+    s00 = cov3d[:, 0, 0]
+    s01 = cov3d[:, 0, 1]
+    s02 = cov3d[:, 0, 2]
+    s11 = cov3d[:, 1, 1]
+    s12 = cov3d[:, 1, 2]
+    s22 = cov3d[:, 2, 2]
+
+    def quad(a, b):
+        return (a[:, 0] * b[:, 0] * s00 + a[:, 1] * b[:, 1] * s11
+                + a[:, 2] * b[:, 2] * s22
+                + (a[:, 0] * b[:, 1] + a[:, 1] * b[:, 0]) * s01
+                + (a[:, 0] * b[:, 2] + a[:, 2] * b[:, 0]) * s02
+                + (a[:, 1] * b[:, 2] + a[:, 2] * b[:, 1]) * s12)
+
+    c00 = quad(t0, t0)
+    c01 = quad(t0, t1)
+    c11 = quad(t1, t1)
+    cov2d = torch.stack([torch.stack([c00, c01], -1),
+                         torch.stack([c01, c11], -1)], -2)
+    return cov2d, t
+
+
+def project_gaussians(
+    means3d: torch.Tensor,
+    cov3d: torch.Tensor,
+    opacity: torch.Tensor,
+    sh_coeffs: torch.Tensor,
+    sh_degree: int,
+    viewmatrix: torch.Tensor,
+    full_proj: torch.Tensor,
+    cam_center: torch.Tensor,
+    width: int,
+    height: int,
+    tan_fovx: float,
+    tan_fovy: float,
+    antialiasing: bool = False,
+    valid_mask: Optional[torch.Tensor] = None,
+    colors_precomp: Optional[torch.Tensor] = None,
+) -> ProjectedGaussians:
+    """Full preprocess. Culled and padded rows get radius 0 and opacity 0."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    focal_x = width / (2.0 * tan_fovx)
+    focal_y = height / (2.0 * tan_fovy)
+
+    hom = means3d @ full_proj[:3, :3].T + full_proj[:3, 3]
+    w = means3d @ full_proj[3, :3] + full_proj[3, 3]
+    inv_w = 1.0 / (w + 1e-7)
+    ndc = hom * inv_w[:, None]
+    mean2d = torch.stack([((ndc[:, 0] + 1.0) * width - 1.0) * 0.5,
+                          ((ndc[:, 1] + 1.0) * height - 1.0) * 0.5], -1)
+
+    cov2d, t = compute_cov2d(means3d, cov3d, viewmatrix, focal_x, focal_y,
+                             tan_fovx, tan_fovy)
+    det_raw = cov2d[:, 0, 0] * cov2d[:, 1, 1] - cov2d[:, 0, 1] * cov2d[:, 1, 0]
+    cxx = cov2d[:, 0, 0] + DILATION
+    cyy = cov2d[:, 1, 1] + DILATION
+    cxy = cov2d[:, 0, 1]
+    det = cxx * cyy - cxy * cxy
+    det_inv = torch.where(det != 0.0, 1.0 / det, torch.zeros_like(det))
+    conic = torch.stack([cyy * det_inv, -cxy * det_inv, cxx * det_inv], -1)
+
+    mid = 0.5 * (cxx + cyy)
+    lam = mid + torch.sqrt(torch.clamp_min(mid * mid - det, LAMBDA_FLOOR))
+    radius = torch.ceil(3.0 * torch.sqrt(lam))
+
+    cull = (t[:, 2] <= FRUSTUM_NEAR_Z) | (det == 0.0)
+    if valid_mask is not None:
+        cull = cull | ~valid_mask
+    radius = torch.where(cull, torch.zeros_like(radius), radius).to(torch.int32)
+
+    op = opacity
+    if antialiasing:
+        op = op * torch.sqrt(torch.clamp_min(det_raw * det_inv, AA_DET_FLOOR))
+    op = torch.where(cull, torch.zeros_like(op), op)
+
+    if colors_precomp is not None:
+        rgb = colors_precomp
+    else:
+        dirs = means3d - cam_center[None, :]
+        dirs = dirs / torch.clamp_min(
+            torch.linalg.vector_norm(dirs, dim=-1, keepdim=True), 1e-12)
+        rgb = shlib.sh_to_color(sh_degree, sh_coeffs, dirs)
+
+    inf = torch.full_like(t[:, 2], float("inf"))
+    depth = torch.where(cull, inf, t[:, 2])
+    invdepth = torch.where(cull, torch.zeros_like(depth),
+                           1.0 / torch.clamp_min(t[:, 2], 1e-6))
+    return ProjectedGaussians(
+        mean2d=mean2d, conic=round_bf16(conic), opacity=round_bf16(op),
+        rgb=round_bf16(rgb), depth=depth, invdepth=round_bf16(invdepth),
+        radius=radius)
+
+
+def tile_rect_tight(proj: ProjectedGaussians, width: int, height: int):
+    """Exact axis-aligned tile rect of the alpha >= 1/255 level set, clipped
+    to the 3-sigma square; (xmin, ymin, xmax, ymax) half-open int32."""
+    grid_x = (width + TILE - 1) // TILE
+    grid_y = (height + TILE - 1) // TILE
+    a = proj.conic[:, 0]
+    b = proj.conic[:, 1]
+    c = proj.conic[:, 2]
+    detc = a * c - b * b
+    inv = 1.0 / torch.clamp_min(detc, 1e-30)
+    sxx = c * inv
+    syy = a * inv
+    alpha_min = 1.0 / 255.0
+    tau = torch.clamp_min(
+        2.0 * torch.log(torch.clamp_min(proj.opacity, 1e-12) / alpha_min), 0.0)
+    r3 = proj.radius.to(torch.float32)
+    rx = torch.minimum(torch.sqrt(torch.clamp_min(tau * sxx, 0.0)) + 1.0, r3)
+    ry = torch.minimum(torch.sqrt(torch.clamp_min(tau * syy, 0.0)) + 1.0, r3)
+    empty = (proj.radius <= 0) | (proj.opacity < alpha_min)
+    mx = proj.mean2d[:, 0]
+    my = proj.mean2d[:, 1]
+
+    def cell(v, hi):
+        return torch.clamp((v / TILE).to(torch.int32), 0, hi)
+
+    xmin = cell(mx - rx, grid_x)
+    ymin = cell(my - ry, grid_y)
+    xmax = cell(mx + rx + TILE - 1, grid_x)
+    ymax = cell(my + ry + TILE - 1, grid_y)
+    xmax = torch.where(empty, xmin, torch.maximum(xmax, xmin))
+    ymax = torch.where(empty, ymin, torch.maximum(ymax, ymin))
+    return xmin, ymin, xmax, ymax
+
+
+def tile_rect(mean2d: torch.Tensor, radius: torch.Tensor, width: int,
+              height: int):
+    """Tile-grid bounding rect, CUDA ``getRect`` semantics; radius 0 gives
+    an empty rect. (xmin, ymin, xmax, ymax) half-open int32."""
+    grid_x = (width + TILE - 1) // TILE
+    grid_y = (height + TILE - 1) // TILE
+    r = radius.to(torch.float32)
+
+    def cell(v, hi):
+        return torch.clamp((v / TILE).to(torch.int32), 0, hi)
+
+    xmin = cell(mean2d[:, 0] - r, grid_x)
+    ymin = cell(mean2d[:, 1] - r, grid_y)
+    xmax = cell(mean2d[:, 0] + r + TILE - 1, grid_x)
+    ymax = cell(mean2d[:, 1] + r + TILE - 1, grid_y)
+    empty = radius <= 0
+    xmax = torch.where(empty, xmin, xmax)
+    ymax = torch.where(empty, ymin, ymax)
+    return xmin, ymin, xmax, ymax
