@@ -7,33 +7,51 @@ Builds the port's CUDA kernels from ``priordepth_gaussiansplatting_torch/
 csrc/`` (one nvcc per source, in parallel), then runs, printing one JSON
 line per phase:
 
-  1. device: the card, its power limit, the toolkit and the build;
-  2. mid: each kernel against its plain PyTorch version on the same inputs
-     (65,536 Gaussians at 512x512, SH degree 3, antialiasing; and a
+  1. device: the card, its power limit, the toolkit, the build and the TF32
+     switches (both must be off);
+  2. mid: each forward kernel against its plain PyTorch version on the same
+     inputs (65,536 Gaussians at 512x512, SH degree 3, antialiasing; and a
      dense-overlap scene);
   3. full: 1,000,000 Gaussians at 1600x1066 (bench.py's random Gaussians,
      drawn with numpy) rendered through ops.render.render(backend=
      "kernels") for three views, with the launch counts of that run, each
-     kernel against its plain version at full width, and CUDA-event times;
-     then "profile": device time by kernel and host time by operator of one
-     render per view, from torch.profiler;
-  4. cli: the port's render CLI on a raycast synthetic scene;
-  5. kernels: one object per kernel (the line before the card's line).
+     forward kernel against its plain version at full width, and CUDA-event
+     times; then "profile": device time by kernel and host time by operator
+     of one render per view, from torch.profiler;
+  4. train: the same scene trained for 10 steps of
+     train.step.make_train_step over the three views (L1 + D-SSIM +
+     depth-L1 against a random inverse-depth prior, Adam, densification
+     statistics), with every step's launch counts, gradients and guard
+     checked; the backward kernels against their plain versions on view 0's
+     own intermediates, CUDA-event times; fwd+bwd and full-step times; then
+     "train_profile": the profiler's breakdown of one train step per view;
+  5. train_mid: the mid scene's parameter gradients from the kernels
+     against those from the plain versions on the same card, then 3 steps,
+     a densify round, an opacity reset and 2 more steps;
+  6. cli: the port's render CLI on a raycast synthetic scene;
+  7. kernels: one object per kernel (the line before the card's line).
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero, and it does so before printing a result when there is no CUDA
 card or when the port is not beside it.
 
-Tolerances: K1 (pair expansion) and K5 (pair table) must equal their plain
+Tolerances: K1 (pair expansion) and K5a (pair table) must equal their plain
 versions bit for bit; K1's only allowed difference is a pair whose box
 minimum lies within one f32 ulp of the cull limit (logf rounding), at most
 0.001% of the rect pairs. K2 (compositor) must be within 2e-5 on >= 99.9% of
 values and within 5e-3 everywhere: a product rounded differently can move
-the T < 1e-4 stop by one pair (the repo's dense-overlap rule).
+the T < 1e-4 stop by one pair (the repo's dense-overlap rule). K3 (composite
+backward) per-pair rows within 3e-4 max|row| + 2e-3 |ref| on >= 99.9% of
+entries (the JAX package's gradient rule; a stop moved by one pair moves
+the rest of that pixel's pairs), and its evaluated pairs equal to K2's on
+>= 99.9% of pixels. K5b (sort-back) bit for bit. K4 (per-Gaussian sum)
+within 1e-5 max|row| of a float64 sum. Parameter gradients, kernels against
+plain versions: atol 3e-4 max|g|, rtol 2e-3.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -50,14 +68,26 @@ CARD_F32_OPS_PER_S = 67e12
 # Work per unit, counted from the kernels' sources.
 K1_OPS_PER_SLOT = 70      # the cull's f32 operations per pair slot < total
 K2_OPS_PER_EVAL = 20      # f32 operations per (pixel, pair), expf as one
+# K3 redoes K2's 20 per evaluation, and per evaluation that a kept, live
+# pair contributes: rho (7), prefix and suffix (3), g_alpha (5), d_power
+# (1), the 10 values (30) and T (1).
+K3_OPS_PER_USED = 47
+# Launch label -> (id, CUDA source, the TPU kernel it replaces).
+TPU = "priordepth_gaussiansplatting_tpu/ops/"
 KERNELS = {
-    "expand_pairs": ("K1", "priordepth_gaussiansplatting_tpu/ops/binning.py:589"),
-    "gather_rows": ("K5", "priordepth_gaussiansplatting_tpu/ops/binning.py:1003"),
-    "composite_fwd": ("K2",
-                      "priordepth_gaussiansplatting_tpu/ops/rasterize_pallas.py:272"),
+    "expand_pairs": ("K1", "expand_pairs", TPU + "binning.py:589"),
+    "gather_rows": ("K5a", "gather_rows", TPU + "binning.py:1003"),
+    "composite_fwd": ("K2", "composite_fwd", TPU + "rasterize_pallas.py:272"),
+    "composite_bwd": ("K3", "composite_bwd", TPU + "rasterize_pallas.py:418"),
+    "gather_rows_bwd": ("K5b", "gather_rows", TPU + "binning.py:1051"),
+    "segment_reduce": ("K4", "segment_reduce", TPU + "binning.py:429"),
 }
+FORWARD = ("expand_pairs", "gather_rows", "composite_fwd")
 FULL_N, FULL_W, FULL_H = 1_000_000, 1600, 1066
 FULL_EYES = [(0.0, 0.0, -2.5), (0.25, -0.15, -2.45), (-0.3, 0.1, -2.4)]
+MID_N, MID_WH = 65_536, 512
+TRAIN_STEPS = 10
+GRAD_ATOL, GRAD_RTOL = 3e-4, 2e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -85,6 +115,27 @@ def bits_equal(torch, a, b) -> bool:
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
+@contextlib.contextmanager
+def swapped(attrs):
+    """Replace module attributes [(module, name, value)] for the block."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in attrs]
+    for m, n, v in attrs:
+        setattr(m, n, v)
+    try:
+        yield
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
+def bound(nbytes: float, ops: float):
+    """(least ms, what bounds it) for moving `nbytes` and doing `ops` f32
+    operations on the card."""
+    tb = nbytes / CARD_BYTES_PER_S * 1e3
+    to = ops / CARD_F32_OPS_PER_S * 1e3
+    return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
 class Smoke:
     def __init__(self):
         import torch
@@ -93,29 +144,46 @@ class Smoke:
         from priordepth_gaussiansplatting_torch.ops import (binning,
                                                             projection,
                                                             rasterize, render)
-        from priordepth_gaussiansplatting_torch.utils import testing
+        from priordepth_gaussiansplatting_torch.models import densify
+        from priordepth_gaussiansplatting_torch.train import optim, step
+        from priordepth_gaussiansplatting_torch.utils import config, testing
         self.torch, self.kernels, self.interop = torch, kernels, interop
         self.binning, self.projection = binning, projection
         self.rasterize, self.render, self.testing = rasterize, render, testing
+        self.densify, self.optim, self.step, self.config = (densify, optim,
+                                                            step, config)
         self.dev = torch.device("cuda")
         self.results = {}
 
     # --- inputs ------------------------------------------------------------
 
-    def state(self, g):
+    def state(self, g, num_images: int = 1):
         t = self.torch
         params = {
             "xyz": g["means"], "features_dc": g["sh"][:, :3],
             "features_rest": g["sh"][:, 3:], "scaling": np.log(g["scales"]),
             "rotation": g["quats"],
             "opacity": np.log(g["opacities"] / (1 - g["opacities"]))[:, None],
-            "exposure": np.eye(3, 4, dtype=np.float32)[None],
+            "exposure": np.tile(np.eye(3, 4, dtype=np.float32),
+                                (num_images, 1, 1)),
         }
         n = g["means"].shape[0]
         state = self.interop.gaussian_state_from_numpy(
             params, np.ones(n, bool), 3, 3, device=self.dev)
         t.cuda.synchronize()
         return state
+
+    def train_cameras(self, eyes, w, h, seed):
+        """Views with a uniform random target and a random inverse-depth
+        prior (mask all ones), drawn with numpy from `seed`; view i uses
+        exposure i."""
+        rng = np.random.default_rng(seed)
+        return [self.testing.look_at_camera(
+            e, width=w, height=h, device=self.dev, exposure_id=i,
+            image=rng.random((3, h, w), dtype=np.float32),
+            invdepth=rng.uniform(0.2, 0.6, (h, w)).astype(np.float32),
+            depth_mask=np.ones((h, w), np.float32))
+            for i, e in enumerate(eyes)]
 
     def project(self, cam, state):
         return self.projection.project_gaussians(
@@ -125,16 +193,84 @@ class Smoke:
             cam.tan_fovx, cam.tan_fovy, antialiasing=True,
             valid_mask=state.active)
 
-    def capacities(self, proj, w, h):
+    def capacities(self, proj, w, h, headroom: float = 1.05):
         """bench.py's rule: one probe binning, then the ladder rung above
-        1.05x the rect and the kept pair counts."""
+        `headroom` times the rect and the kept pair counts."""
         rp = self.rasterize
         total = int(self.binning.depth_sorted_rects(proj, w, h)["total"])
         probe = max(rp.default_pair_capacity(proj.mean2d.shape[0]),
                     rp.round_capacity(total))
         _, aux = self.binning.bin_sorted_pairs(proj, w, h, probe)
-        return (rp.round_capacity(int(int(aux["num_rect"]) * 1.05)),
-                rp.round_capacity(int(int(aux["num_valid"]) * 1.05)))
+        return (rp.round_capacity(int(int(aux["num_rect"]) * headroom)),
+                rp.round_capacity(int(int(aux["num_valid"]) * headroom)))
+
+    def view_capacities(self, state, cams, headroom: float = 1.05):
+        """The largest capacities over the views."""
+        with self.torch.no_grad():
+            caps = [self.capacities(self.project(c, state), c.width,
+                                    c.height, headroom) for c in cams]
+        return max(c[0] for c in caps), max(c[1] for c in caps)
+
+    def plain_kernels(self):
+        """Every kernel wrapper of the path replaced by its plain version,
+        so the same autograd Functions run on the card without a kernel."""
+        b, r = self.binning, self.rasterize
+        return swapped([
+            (b, "expand_pairs", b.expand_pairs_plain),
+            (b, "gather_rows", b.gather_rows_plain),
+            (b, "sort_back_rows", lambda d, key, perm: b.gather_rows_plain(
+                d, key, perm, key.shape[0], key.shape[0])),
+            (b, "segment_reduce", b.segment_reduce_plain),
+            (r, "composite_fwd", r.composite_fwd_plain),
+            (r, "composite_bwd", r.composite_bwd_plain)])
+
+    def recording(self, store):
+        """The backward kernels' wrappers, recording their arguments
+        (detached: the forward's outputs that K3 reads need a gradient)."""
+        b, r = self.binning, self.rasterize
+
+        def rec(name, fn):
+            def call(*args, **kw):
+                store[name] = (tuple(a.detach() if isinstance(
+                    a, self.torch.Tensor) else a for a in args), kw)
+                return fn(*args, **kw)
+            return call
+        return swapped([(m, n, rec(n, getattr(m, n))) for m, n in
+                        ((r, "composite_bwd"), (b, "sort_back_rows"),
+                         (b, "segment_reduce"))])
+
+    def sample_tiles(self, ts, te, seed: int = 0):
+        """The 32 busiest tiles and 32 others drawn from `seed` (int32)."""
+        counts = (te - ts).cpu().numpy()
+        busiest = np.argsort(-counts, kind="stable")[:32]
+        rest = np.setdiff1d(np.arange(counts.size), busiest)
+        rng = np.random.default_rng(seed)
+        pick = np.concatenate([busiest, rng.choice(rest, 32, False)])
+        return self.torch.as_tensor(pick, dtype=self.torch.int32,
+                                    device=self.dev)
+
+    def used_evaluations(self, table, ts, te, grid_x):
+        """(pixel, pair) evaluations of kept pairs before each pixel's stop,
+        over all tiles: the evaluations K3 does its extra work for."""
+        t, b, r = self.torch, self.binning, self.rasterize
+        total = t.zeros((), dtype=t.int64, device=self.dev)
+        for tile, (s, e) in enumerate(zip(ts.tolist(), te.tolist())):
+            if e <= s:
+                continue
+            ty, tx = divmod(tile, grid_x)
+            pix = t.arange(r.PIX, device=self.dev)
+            px = (tx * 16 + pix % 16).float()[:, None]
+            py = (ty * 16 + pix // 16).float()[:, None]
+            p = table[:, s:e]
+            dx, dy = px - p[b.ATTR_MX], py - p[b.ATTR_MY]
+            power = (-0.5 * (p[b.ATTR_CA] * dx * dx + p[b.ATTR_CC] * dy * dy)
+                     - p[b.ATTR_CB] * dx * dy)
+            alpha = t.clamp_max(p[b.ATTR_OP] * t.exp(power), r.ALPHA_MAX)
+            keep = (power <= 0.0) & (alpha >= r.ALPHA_MIN)
+            a = t.where(keep, alpha, t.zeros_like(alpha))
+            live = t.cumprod(1.0 - a, dim=1) >= r.T_EPS
+            total += (keep & live).sum()
+        return int(total)
 
     # --- kernel vs plain -----------------------------------------------------
 
@@ -217,23 +353,29 @@ class Smoke:
                               text=True, check=True,
                               timeout=60).stdout.strip().splitlines()[-1]
         ptxas = {}
-        for name in KERNELS:
+        for name in self.kernels.KERNELS:
             lines = [ln.split("ptxas info    :")[-1].strip()
                      for ln in build.ptxas_report(name).splitlines()
                      if "Used" in ln or "spill" in ln]
             ptxas[name] = lines
+        # The port switches TF32 off when it is imported: the projection's
+        # products and SSIM's convolutions run in true f32.
+        tf32 = {"matmul": t.backends.cuda.matmul.allow_tf32,
+                "cudnn": t.backends.cudnn.allow_tf32}
+        assert not any(tf32.values()), tf32
         self.smi = smi
         emit("device", name=t.cuda.get_device_name(0),
              count=t.cuda.device_count(), nvidia_smi=smi, nvcc=nvcc,
              torch=t.__version__, torch_cuda=t.version.cuda,
              build_s={k: round(v, 3) for k, v in build_seconds.items()},
-             build_wall_s=round(build_wall, 3), ptxas=ptxas)
+             build_wall_s=round(build_wall, 3), ptxas=ptxas,
+             allow_tf32=tf32)
 
     def phase_mid(self):
         T = self.testing
         out = {}
         for label, g, wh, eye in (
-                ("n65536_512px", T.random_gaussians(1, 65_536), 512,
+                (f"n{MID_N}_{MID_WH}px", T.random_gaussians(1, MID_N), MID_WH,
                  (0.0, 0.0, -2.5)),
                 ("dense_overlap", T.random_gaussians(
                     5, 128, extent=0.3, scale_range=(0.1, 0.3),
@@ -274,32 +416,23 @@ class Smoke:
             out = render(cam)
             t.cuda.synchronize()
             after = k.launch_counts()
-            per_view.append({n: after[n] - before[n] for n in KERNELS})
+            per_view.append({n: after[n] - before[n] for n in FORWARD})
             outs.append(out)
         launches = k.launch_counts()
         for i, (view, out) in enumerate(zip(per_view, outs)):
-            assert all(view[n] >= 1 for n in KERNELS), (i, view)
+            assert all(view[n] >= 1 for n in FORWARD), (i, view)
             img = out["render"]
             assert img.shape == (3, FULL_H, FULL_W)
             assert bool(t.isfinite(img).all()) and bool(
                 t.isfinite(out["invdepth"]).all()), f"view {i}: non-finite"
             assert int(out["overflow"]) == 0, f"view {i} overflowed"
             assert float(img.std()) > 0 and int(out["num_pairs"]) > 0
-        assert all(launches[n] == len(cams) for n in KERNELS), launches
+        assert all(launches[n] == len(cams) for n in FORWARD), launches
 
         # Kernels against plain versions on view 0's intermediates.
-        rng = np.random.default_rng(0)
-
-        def sample(ts, te):
-            counts = (te - ts).cpu().numpy()
-            busiest = np.argsort(-counts, kind="stable")[:32]
-            rest = np.setdiff1d(np.arange(counts.size), busiest)
-            pick = np.concatenate([busiest, rng.choice(rest, 32, False)])
-            return t.as_tensor(pick, dtype=t.int32, device=self.dev)
-
         proj0 = self.project(cams[0], state)
         errs, x, info = self.check_kernels(proj0, FULL_W, FULL_H, p_cap,
-                                           v_cap, tiles=sample)
+                                           v_cap, tiles=self.sample_tiles)
 
         # Times on the card (CUDA events), at the main path's shapes.
         b, r = self.binning, self.rasterize
@@ -347,7 +480,7 @@ class Smoke:
         n_live = int((t.diff(offsets, append=x["k1"]["total"]) > 0).sum())
         num_tiles = int(x["ts"].shape[0])
         nv = min(info["num_valid"], v_cap)
-        bound = {
+        work = {
             "expand_pairs": ((4 * p_cap + 44 * tot + 4 * num_tiles
                               + 56 * n_live + 4),
                              K1_OPS_PER_SLOT * tot),
@@ -358,11 +491,8 @@ class Smoke:
                               K2_OPS_PER_EVAL * n_evals),
         }
         bound_ms, bound_by = {}, {}
-        for name, (nbytes, ops) in bound.items():
-            tb = nbytes / CARD_BYTES_PER_S * 1e3
-            to = ops / CARD_F32_OPS_PER_S * 1e3
-            bound_ms[name] = max(tb, to)
-            bound_by[name] = "bytes" if tb >= to else "operations"
+        for name, (nbytes, ops) in work.items():
+            bound_ms[name], bound_by[name] = bound(nbytes, ops)
 
         # The whole render, end to end, forward only.
         render(cams[0])
@@ -375,9 +505,9 @@ class Smoke:
                 render(cam)
         t.cuda.synchronize()
         frame_ms = (time.perf_counter() - t0) * 1e3 / (reps * len(cams))
-        self.results.update(launches=launches, errs=errs, ms=ms,
-                            plain_ms=plain_ms, library_ms=library_ms,
-                            bound_ms=bound_ms, bound_by=bound_by)
+        self.results.update(errs=errs, ms=ms, plain_ms=plain_ms,
+                            library_ms=library_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
         emit("full", ok=True, n=FULL_N, width=FULL_W, height=FULL_H,
              views=len(cams), p_cap=p_cap, v_cap=v_cap,
              launches_per_view=per_view, launches=launches,
@@ -391,19 +521,20 @@ class Smoke:
              peak_mem_gib=t.cuda.max_memory_allocated() / 2 ** 30)
         self.phase_profile(render, cams)
 
-    def phase_profile(self, render, cams):
+    def phase_profile(self, fn, cams, phase: str = "profile"):
         """Where a frame's time goes: device time by kernel name and host
-        time by operator, from torch.profiler over one render per view."""
+        time by operator, from torch.profiler over one call of `fn` per
+        view."""
         t = self.torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
-        render(cams[0])
+        fn(cams[0])
         t.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for cam in cams:
-                render(cam)
+                fn(cam)
             t.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         frames = len(cams)
@@ -417,7 +548,7 @@ class Smoke:
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
         host = sorted(prof.key_averages(),
                       key=lambda e: -e.self_cpu_time_total)[:10]
-        emit("profile", frames=frames, traced_wall_ms_per_frame=wall_ms / frames,
+        emit(phase, frames=frames, traced_wall_ms_per_frame=wall_ms / frames,
              device_ms_per_frame=device_ms / frames,
              device_busy_share=device_ms / wall_ms,
              device_ops_per_frame=sum(v[1] for v in by_name.values()) / frames,
@@ -426,6 +557,305 @@ class Smoke:
              host_top=[{"name": e.key[:60],
                         "self_ms_per_frame": e.self_cpu_time_total / 1e3 / frames,
                         "calls_per_frame": e.count / frames} for e in host])
+
+    # --- training ------------------------------------------------------------
+
+    def train_fns(self, p_cap, v_cap, use_trained_exp=False):
+        cfg = self.config
+        return self.step.make_train_step(
+            cfg.OptimizationConfig(depth_feedback=True),
+            cfg.PipelineConfig(antialiasing=True, backend="kernels"),
+            use_trained_exp=use_trained_exp, pair_capacity=p_cap,
+            valid_capacity=v_cap)
+
+    def checked_step(self, fns, state, opt, cam, it, bg, label,
+                     groups=None):
+        """One train step with its launch counts, guard and gradients (of
+        `groups`, default all) checked. The gradient of each group is read
+        back from Adam's first moment (mu' = 0.9 mu + 0.1 g)."""
+        t, k = self.torch, self.kernels
+        mu0 = {n: getattr(opt.mu, n).clone()
+               for n in groups or self.interop.PARAM_FIELDS}
+        accum0 = float(state.xyz_gradient_accum.sum())
+        before = k.launch_counts()
+        state, opt, m = fns.step(state, opt, cam, it, None, bg)
+        t.cuda.synchronize()
+        after = k.launch_counts()
+        delta = {n: after[n] - before[n] for n in KERNELS}
+        assert all(v == 1 for v in delta.values()), (label, it, delta)
+        m = {key: float(v) for key, v in m.items()}
+        assert m["skipped"] == 0 and m["overflow"] == 0, (label, it, m)
+        assert np.isfinite(m["loss"]), (label, it, m)
+        b1 = self.optim.B1
+        for n, old in mu0.items():
+            g = (getattr(opt.mu, n) - b1 * old) / (1.0 - b1)
+            assert bool(t.isfinite(g).all()), (label, it, n, "non-finite")
+            assert bool((g != 0).any()), (label, it, n, "all zero")
+        assert float(state.xyz_gradient_accum.sum()) > accum0, (label, it)
+        return state, opt, m
+
+    def phase_train(self):
+        t, T, k = self.torch, self.testing, self.kernels
+        b, r = self.binning, self.rasterize
+        g = T.random_gaussians(0, FULL_N, extent=1.0,
+                               scale_range=(0.001, 0.004))
+        state = self.state(g, num_images=len(FULL_EYES))
+        cams = self.train_cameras(FULL_EYES, FULL_W, FULL_H, seed=1)
+        # 1.25x headroom: Adam grows these small Gaussians towards the
+        # random target over the ten steps, and with them the pair count.
+        p_cap, v_cap = self.view_capacities(state, cams, headroom=1.25)
+        fns = self.train_fns(p_cap, v_cap, use_trained_exp=True)
+        opt = self.optim.init_adam(state.params)
+        bg = t.zeros(3, device=self.dev)
+
+        # The main path: every count at 0 just before, read just after.
+        store = {}
+        t.cuda.synchronize()
+        k.reset_launch_counts()
+        steps = []
+        for i in range(TRAIN_STEPS):
+            cam = cams[i % len(cams)]
+            with self.recording(store) if i == 0 else contextlib.nullcontext():
+                state, opt, m = self.checked_step(fns, state, opt, cam, i + 1,
+                                                  bg, "train")
+            steps.append({key: m[key] for key in
+                          ("loss", "l1", "ssim", "depth_loss", "n_visible",
+                           "num_pairs")})
+        launches = k.launch_counts()
+        assert all(launches[n] == TRAIN_STEPS for n in KERNELS), launches
+
+        # The backward kernels against their plain versions on view 0's own
+        # intermediates, as the step handed them over.
+        (table, ts, te, grid_x, dC, dD, dT, C, D, T_fin), kw = \
+            store["composite_bwd"]
+        assert kw.get("tiles") is None
+        k3_args = (table, ts, te, grid_x, dC, dD, dT, C, D, T_fin)
+        n_eval_fwd = r.composite_fwd(table, ts, te, grid_x)[3]
+        d_full, n_eval = r.composite_bwd(*k3_args)
+        t.cuda.synchronize()
+        k3_eval_differ = int((n_eval != n_eval_fwd).sum())
+        assert k3_eval_differ <= 1e-3 * n_eval.numel(), \
+            f"K3 evaluated pairs differ from K2's on {k3_eval_differ} pixels"
+        (d_table, key, perm), _ = store["sort_back_rows"]
+        assert bits_equal(t, d_table, d_full), "K3 is not deterministic"
+        sel = self.sample_tiles(ts, te)
+        sub = (dC[:, sel].contiguous(), dD[sel].contiguous(),
+               dT[sel].contiguous(), C[:, sel].contiguous(),
+               D[sel].contiguous(), T_fin[sel].contiguous())
+        got, got_eval = r.composite_bwd(table, ts, te, grid_x, *sub,
+                                        tiles=sel)
+        want, want_eval = r.composite_bwd_plain(table, ts, te, grid_x, *sub,
+                                                tiles=sel)
+        cols = t.cat([t.arange(s, e, device=self.dev) for s, e in
+                      zip(ts[sel].tolist(), te[sel].tolist())])
+        assert bits_equal(t, got[:, cols], d_full[:, cols]), \
+            "K3 over listed tiles differs from K3 over all tiles"
+        a, w = got[:, cols], want[:, cols]
+        within = ((a - w).abs() <= 3e-4 * w.abs().amax(1, keepdim=True)
+                  + 2e-3 * w.abs()).float().mean(1)
+        assert float(within.min()) >= 0.999, f"K3 rows: {within.tolist()}"
+        assert float((got_eval == want_eval).float().mean()) >= 0.999
+        outside = got.clone()
+        outside[:, cols] = 0.0
+        assert float(outside.abs().max()) == 0.0, \
+            "K3 wrote outside the listed tiles"
+
+        d_sorted, key_sorted = b.sort_back_rows(d_table, key, perm)
+        want5 = b.gather_rows_plain(d_table, key, perm, key.shape[0],
+                                    key.shape[0])
+        assert bits_equal(t, d_sorted, want5[0]), "K5b rows differ"
+        assert bits_equal(t, key_sorted, want5[1]), "K5b keys differ"
+        (ds, ks, num_valid, n), _ = store["segment_reduce"]
+        assert bits_equal(t, ds, d_sorted)
+        got4 = b.segment_reduce(ds, ks, num_valid, n)
+        want4 = b.segment_reduce_plain(ds, ks, num_valid, n)
+        t.cuda.synchronize()
+        scale4 = want4.abs().amax(1, keepdim=True)
+        assert bool(((got4 - want4).abs() <= 1e-5 * scale4).all()), "K4"
+        errs = {"composite_bwd": float((a - w).abs().max()),
+                "gather_rows_bwd": float((d_sorted - want5[0]).abs().max()),
+                "segment_reduce": float((got4 - want4).abs().max())}
+
+        # Times on the card (CUDA events), at the main path's shapes.
+        ms = {
+            "composite_bwd": cuda_ms(t, lambda: r.composite_bwd(*k3_args)),
+            "gather_rows_bwd": cuda_ms(t, lambda: b.sort_back_rows(
+                d_table, key, perm)),
+            "segment_reduce": cuda_ms(t, lambda: b.segment_reduce(
+                ds, ks, num_valid, n)),
+        }
+        v = key.shape[0]
+        plain_ms = {
+            "composite_bwd": cuda_ms(t, lambda: r.composite_bwd_plain(
+                *k3_args), reps=1, warmup=False),
+            "gather_rows_bwd": cuda_ms(t, lambda: b.gather_rows_plain(
+                d_table, key, perm, v, v), reps=3),
+            "segment_reduce": cuda_ms(t, lambda: b.segment_reduce_plain(
+                ds, ks, num_valid, n), reps=3),
+        }
+        pos = t.arange(v, device=self.dev)
+        idx = t.where((pos < num_valid) & (ks < n), ks, n).long()
+        library_ms = {
+            "composite_bwd": None,
+            "gather_rows_bwd": cuda_ms(t, lambda: (
+                d_table.index_select(1, perm), key.index_select(0, perm))),
+            "segment_reduce": cuda_ms(t, lambda: t.zeros(
+                b.ATTR_ROWS, n + 1, device=self.dev).index_add_(1, idx, ds)),
+        }
+
+        # Least time for each kernel's work on this run's data.
+        n_tiles, length = ts.shape[0], table.shape[1]
+        nv = min(int(num_valid), v)
+        n_evals = int(n_eval.sum())
+        n_used = self.used_evaluations(table, ts, te, grid_x)
+        work = {
+            "composite_bwd": (40 * nv + 40 * length + 8 * n_tiles
+                              + 44 * 256 * n_tiles,
+                              K2_OPS_PER_EVAL * n_evals
+                              + K3_OPS_PER_USED * n_used),
+            "gather_rows_bwd": (96 * v, 0),
+            "segment_reduce": (40 * nv + 4 * v + 40 * n, 10 * nv),
+        }
+        bound_ms, bound_by = {}, {}
+        for name, (nbytes, ops) in work.items():
+            bound_ms[name], bound_by[name] = bound(nbytes, ops)
+
+        # fwd+bwd with bench.py's loss, and the whole train step.
+        def fwd_bwd(cam):
+            leaves = {name: getattr(state.params, name).detach()
+                      .requires_grad_(True) for name in
+                      self.interop.PARAM_FIELDS}
+            out = self.render.render(
+                cam, state.replace(params=state.params.replace(**leaves)),
+                bg, antialiasing=True, backend="kernels", pair_capacity=p_cap,
+                valid_capacity=v_cap)
+            loss = (((out["render"] - cam.image) ** 2).mean()
+                    + 0.01 * out["invdepth"].mean())
+            return t.autograd.grad(loss, list(leaves.values()),
+                                   allow_unused=True)
+
+        def host_ms(fn, rounds=2):
+            fn(cams[0])
+            t.cuda.synchronize()
+            t.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                for cam in cams:
+                    fn(cam)
+            t.cuda.synchronize()
+            return ((time.perf_counter() - t0) * 1e3 / (rounds * len(cams)),
+                    t.cuda.max_memory_allocated() / 2 ** 30)
+
+        fwd_bwd_ms, fwd_bwd_gib = host_ms(fwd_bwd)
+        chain = {"state": state, "opt": opt, "it": TRAIN_STEPS}
+
+        def train_step(cam):
+            chain["it"] += 1
+            chain["state"], chain["opt"], _ = fns.step(
+                chain["state"], chain["opt"], cam, chain["it"], None, bg)
+        step_ms, step_gib = host_ms(train_step)
+
+        self.results.update(launches=launches)
+        for key_, val in (("errs", errs), ("ms", ms), ("plain_ms", plain_ms),
+                          ("library_ms", library_ms),
+                          ("bound_ms", bound_ms), ("bound_by", bound_by)):
+            self.results[key_].update(val)
+        emit("train", ok=True, n=FULL_N, width=FULL_W, height=FULL_H,
+             views=len(cams), steps=TRAIN_STEPS, p_cap=p_cap, v_cap=v_cap,
+             per_step=steps, launches=launches,
+             k3_tiles_checked=int(sel.shape[0]),
+             k3_rows_within=within.tolist(),
+             k3_eval_differ_k2=k3_eval_differ,
+             k3_pixels=int(n_eval.numel()), n_evals=n_evals, n_used=n_used,
+             max_abs_err=errs, ms=ms, plain_ms=plain_ms,
+             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+             fwd_bwd_ms=fwd_bwd_ms,
+             fwd_bwd_mray_per_s=FULL_W * FULL_H / fwd_bwd_ms / 1e3,
+             fwd_bwd_peak_mem_gib=fwd_bwd_gib, train_step_ms=step_ms,
+             train_step_peak_mem_gib=step_gib)
+        self.phase_profile(
+            lambda cam: fns.step(state, opt, cam, 1, None, bg), cams,
+            "train_profile")
+
+    def phase_train_mid(self):
+        """The mid scene: gradients from the kernels against those from the
+        plain versions, then steps around a densify round and a reset."""
+        t, T, k = self.torch, self.testing, self.kernels
+        from priordepth_gaussiansplatting_torch.models import gaussians
+        wh = MID_WH
+        state = gaussians.grow_capacity(
+            self.state(T.random_gaussians(1, MID_N)), 2 * MID_N)
+        cams = self.train_cameras([(0.0, 0.0, -2.5), (0.2, -0.1, -2.4)], wh,
+                                  wh, seed=2)
+        p_cap, v_cap = self.view_capacities(state, cams)
+        fns = self.train_fns(p_cap, v_cap)
+        opt = self.optim.init_adam(state.params)
+        bg = t.zeros(3, device=self.dev)
+
+        runs = {}
+        for label in ("kernels", "plain"):
+            with self.plain_kernels() if label == "plain" \
+                    else contextlib.nullcontext():
+                before = sum(k.launch_counts().values())
+                runs[label] = fns.step(state, opt, cams[0], 1, None, bg)
+                t.cuda.synchronize()
+                runs[label] += (sum(k.launch_counts().values()) - before,)
+        assert runs["kernels"][3] == len(KERNELS) and runs["plain"][3] == 0
+        loss_k, loss_p = (float(runs[x][2]["loss"]) for x in runs)
+        assert abs(loss_k - loss_p) <= 1e-5, (loss_k, loss_p)
+        grad_err = {}
+        pairs = [(n, getattr(runs["kernels"][1].mu, n),
+                  getattr(runs["plain"][1].mu, n))
+                 for n in self.interop.PARAM_FIELDS]
+        pairs.append(("screen_grad_norm",
+                      runs["kernels"][0].xyz_gradient_accum,
+                      runs["plain"][0].xyz_gradient_accum))
+        for n, got, want in pairs:
+            scale = float(want.abs().max())
+            diff = (got - want).abs()
+            ok = diff <= GRAD_ATOL * scale + GRAD_RTOL * want.abs()
+            grad_err[n] = {"max_abs": float(diff.max()), "max_ref": scale,
+                           "within": float(ok.float().mean())}
+            assert bool(ok.all()), (n, grad_err[n])
+
+        state, opt, _, _ = runs["kernels"]
+        # Without trained exposures the exposure group has no gradient.
+        per_gaussian = self.optim.PER_GAUSSIAN
+        steps = []
+        for it in (2, 3):
+            state, opt, m = self.checked_step(fns, state, opt,
+                                              cams[it % 2], it, bg, "mid",
+                                              groups=per_gaussian)
+            steps.append(m)
+        # The threshold that densifies a tenth of the Gaussians whose screen
+        # gradient is not zero (most of this dense scene is occluded).
+        mean_grad = state.xyz_gradient_accum / t.clamp_min(state.denom, 1.0)
+        threshold = float(t.quantile(mean_grad[mean_grad > 0], 0.9))
+        n_before = int(state.num_active)
+        state, opt, info = self.densify.densify_and_prune(
+            state, opt, threshold, 0.005, state.spatial_lr_scale, 0.0,
+            generator=t.Generator(device=self.dev).manual_seed(0))
+        info = {key: int(val) for key, val in info.items()}
+        assert info["n_cloned"] + info["n_split"] > 0, info
+        assert info["n_active"] == int(state.num_active) == (
+            n_before + info["n_cloned"] + info["n_split"]
+            - info["n_pruned"]), (n_before, info)
+        state, opt = self.densify.reset_opacity(state, opt)
+        p_cap2, v_cap2 = self.view_capacities(state, cams)
+        fns = self.train_fns(p_cap2, v_cap2)
+        for it in (4, 5):
+            state, opt, m = self.checked_step(fns, state, opt,
+                                              cams[it % 2], it, bg, "mid",
+                                              groups=per_gaussian)
+            assert int(m["n_active"]) == info["n_active"]
+            steps.append(m)
+        emit("train_mid", ok=True, n=MID_N, capacity=state.capacity,
+             width=wh, height=wh, p_cap=[p_cap, p_cap2],
+             v_cap=[v_cap, v_cap2], loss_kernels=loss_k, loss_plain=loss_p,
+             grad_kernels_vs_plain=grad_err, densify_threshold=threshold,
+             n_active_before=n_before, densify=info,
+             steps=[{key: s[key] for key in ("loss", "n_active", "num_pairs",
+                                             "skipped")} for s in steps])
 
     def phase_cli(self):
         from priordepth_gaussiansplatting_torch.train import checkpoint
@@ -461,10 +891,10 @@ class Smoke:
     def kernels_line(self):
         res = self.results
         rows = []
-        for name, (kid, replaces) in KERNELS.items():
+        for name, (kid, source, replaces) in KERNELS.items():
             rows.append({
                 "name": name, "id": kid, "route": "cuda",
-                "source": f"priordepth_gaussiansplatting_torch/csrc/{name}.cu",
+                "source": f"priordepth_gaussiansplatting_torch/csrc/{source}.cu",
                 "replaces": replaces, "launches": res["launches"][name],
                 "max_abs_err": res["errs"][name], "ms": res["ms"][name],
                 "plain_ms": res["plain_ms"][name],
@@ -489,6 +919,8 @@ def main() -> int:
     smoke.phase_device(build_seconds, build_wall)
     smoke.phase_mid()
     smoke.phase_full()
+    smoke.phase_train()
+    smoke.phase_train_mid()
     smoke.phase_cli()
     smoke.kernels_line()
     print(smoke.smi, flush=True)

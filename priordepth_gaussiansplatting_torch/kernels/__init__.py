@@ -1,7 +1,10 @@
 """The hand-written CUDA kernels: launch, launch counts, error checks.
 
 Each wrapper in ``ops/`` calls :func:`launch` for a CUDA tensor; that is the
-only place a kernel is launched and the only place its count grows.
+only place a kernel is launched and the only place its count grows. A launch
+is counted under its label: the kernel's name, or another name where one
+kernel serves two places on the path (``gather_rows`` builds the forward's
+pair table, ``gather_rows_bwd`` is the backward's sort-back).
 """
 
 from __future__ import annotations
@@ -12,16 +15,20 @@ import torch
 
 from . import build
 
-KERNELS = ("expand_pairs", "gather_rows", "composite_fwd")
+# The sources in csrc/, one library each.
+KERNELS = ("expand_pairs", "gather_rows", "composite_fwd", "composite_bwd",
+           "segment_reduce")
+# What the launch counts are kept under.
+LABELS = KERNELS + ("gather_rows_bwd",)
 
-_launches = dict.fromkeys(KERNELS, 0)
+_launches = dict.fromkeys(LABELS, 0)
 
 ptr = ctypes.c_void_p
 i32 = ctypes.c_int
 
 
 def launch_counts() -> dict:
-    """{kernel name: launches since the last reset}."""
+    """{label: launches since the last reset}."""
     return dict(_launches)
 
 
@@ -30,8 +37,9 @@ def reset_launch_counts() -> None:
         _launches[name] = 0
 
 
-def launch(name: str, argtypes, *args) -> None:
-    """Launch kernel `name` on the current stream and count it.
+def launch(name: str, argtypes, *args, label: str | None = None) -> None:
+    """Launch kernel `name` on the current stream and count it under
+    `label` (default: `name`).
 
     `args` are the C entry point's arguments without the trailing stream:
     tensors are passed as their data pointers. Raises if the launch was
@@ -43,7 +51,7 @@ def launch(name: str, argtypes, *args) -> None:
     if rc != 0:
         msg = getattr(lib, f"{name}_error")(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}): {msg}")
-    _launches[name] += 1
+    _launches[label or name] += 1
 
 
 def check_cuda(name: str, **tensors) -> None:

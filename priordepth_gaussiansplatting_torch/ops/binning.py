@@ -1,6 +1,7 @@
 """Tile binning: depth sort, pair expansion with cull (K1), tile sort and
-the compositor's pair table (K5); the forward half of the JAX package's
-``ops/binning.py::bin_sorted_pairs``.
+the compositor's pair table (K5), and its backward, the sort-back of the
+pair gradients (K5b) and their per-Gaussian sum (K4); the JAX package's
+``ops/binning.py::bin_sorted_pairs`` with its custom VJP.
 
   1. ONE stable sort of the N Gaussians by depth, with empty rects sent to
      the tail (depth inf), so the live prefix has strictly ascending
@@ -15,6 +16,12 @@ the compositor's pair table (K5); the forward half of the JAX package's
   4. K5 (``csrc/gather_rows.cu``): the tile-sorted, zero-padded
      ``(ATTR_ROWS, v_cap + COMPOSITE_PAD)`` table the compositor reads,
      plus the tile-sorted Gaussian ids.
+
+The backward (``_BinSortedPairs``) keys each of the first valid_capacity
+table columns by its Gaussian id (n past num_valid), sorts the key
+(``torch.sort``, stable), gathers the 10 gradient rows through that
+permutation (K5b, ``csrc/gather_rows.cu`` again) and sums each Gaussian's
+contiguous segment (K4, ``csrc/segment_reduce.cu``) in f32.
 
 Pairs beyond ``pair_capacity`` are dropped and counted in
 ``overflow_rect``; kept pairs beyond ``valid_capacity`` fall outside the
@@ -175,44 +182,178 @@ def gather_rows_plain(src, gid, perm, v_cap: int, out_len: int):
     return out, gid[head]
 
 
+def _launch_gather_rows(src, gid, perm, v_cap: int, out_len: int,
+                        label: str):
+    kernels.check_cuda(label, src=src, gid=gid, perm=perm)
+    if src.dtype != torch.float32 or gid.dtype != torch.int32 \
+            or perm.dtype != torch.int64:
+        raise TypeError(f"{label}: src f32, gid int32, perm int64")
+    rows, p = src.shape
+    out = torch.empty(rows, out_len, dtype=torch.float32, device=src.device)
+    gid_out = torch.empty(v_cap, dtype=torch.int32, device=src.device)
+    ptr, i = kernels.ptr, kernels.i32
+    kernels.launch("gather_rows", [ptr] * 3 + [i] * 4 + [ptr] * 2,
+                   src, gid, perm, rows, p, v_cap, out_len, out, gid_out,
+                   label=label)
+    return out, gid_out
+
+
 def gather_rows(src, gid, perm, v_cap: int, out_len: int):
     """K5. ``out[:, i] = src[:, perm[i]]`` and ``gid_out[i] = gid[perm[i]]``
     for i < v_cap; columns v_cap..out_len-1 are zero. src (rows, P) f32,
     gid (P,) int32, perm (P,) int64."""
     if src.device.type == "cpu":
         return gather_rows_plain(src, gid, perm, v_cap, out_len)
-    kernels.check_cuda("gather_rows", src=src, gid=gid, perm=perm)
-    rows, p = src.shape
-    if src.dtype != torch.float32 or gid.dtype != torch.int32 \
-            or perm.dtype != torch.int64:
-        raise TypeError("gather_rows: src f32, gid int32, perm int64")
+    p = src.shape[1]
     if gid.shape != (p,) or perm.shape != (p,) or not v_cap <= min(p, out_len):
         raise ValueError("gather_rows: shapes do not match")
-    out = torch.empty(rows, out_len, dtype=torch.float32, device=src.device)
-    gid_out = torch.empty(v_cap, dtype=torch.int32, device=src.device)
-    ptr, i = kernels.ptr, kernels.i32
-    kernels.launch("gather_rows", [ptr] * 3 + [i] * 4 + [ptr] * 2,
-                   src, gid, perm, rows, p, v_cap, out_len, out, gid_out)
-    return out, gid_out
+    return _launch_gather_rows(src, gid, perm, v_cap, out_len, "gather_rows")
+
+
+# --- K5b: the sort-back of the pair gradients --------------------------------
+
+def sort_back_rows(d_table, key, perm):
+    """K5b. The first v = ``key.shape[0]`` columns of the tile-sorted
+    gradient table moved into Gaussian-id order: ``out[:, i] =
+    d_table[:, perm[i]]`` and ``key_out[i] = key[perm[i]]`` for i < v, where
+    `perm` (v,) int64 sorts `key` (v,) int32. On the card, a second launch
+    of K5's kernel, counted as ``gather_rows_bwd``; the plain version is
+    :func:`gather_rows_plain`."""
+    v = key.shape[0]
+    if d_table.device.type == "cpu":
+        return gather_rows_plain(d_table, key, perm, v, v)
+    if perm.shape != (v,) or d_table.dim() != 2 or d_table.shape[1] < v:
+        raise ValueError("sort_back_rows: shapes do not match")
+    return _launch_gather_rows(d_table, key, perm, v, v, "gather_rows_bwd")
+
+
+# --- K4: per-Gaussian reduction of the id-sorted pair gradients --------------
+
+def segment_bounds(key_sorted, num_valid, n: int):
+    """(n + 1,) int32: the first position of each Gaussian id 0..n in the
+    ascending key, clipped to num_valid (the JAX kernel's block bounds, one
+    per Gaussian)."""
+    queries = torch.arange(n + 1, dtype=torch.int32, device=key_sorted.device)
+    bounds = torch.searchsorted(key_sorted, queries, out_int32=True)
+    return torch.clamp_max(bounds, num_valid)
+
+
+def segment_reduce_plain(d_sorted, key_sorted, num_valid, n: int):
+    """Plain PyTorch version of K4 (see ``csrc/segment_reduce.cu``): an
+    ``index_add_`` over the id in float64, rounded once to f32."""
+    rows, v = d_sorted.shape
+    pos = torch.arange(v, device=d_sorted.device)
+    valid = (pos < num_valid) & (key_sorted < n)
+    idx = torch.where(valid, key_sorted, n).long()
+    out = torch.zeros(rows, n + 1, dtype=torch.float64,
+                      device=d_sorted.device)
+    out.index_add_(1, idx, d_sorted.to(torch.float64))
+    return out[:, :n].to(torch.float32)
+
+
+def segment_reduce(d_sorted, key_sorted, num_valid, n: int):
+    """K4. Sum per Gaussian of the id-sorted pair rows: d_sorted
+    (ATTR_ROWS, v) f32, key_sorted (v,) int32 ascending, num_valid ()
+    int32 -> (ATTR_ROWS, n) f32 in original Gaussian order. Positions >=
+    num_valid and keys >= n contribute nothing."""
+    if d_sorted.device.type == "cpu":
+        return segment_reduce_plain(d_sorted, key_sorted, num_valid, n)
+    kernels.check_cuda("segment_reduce", d_sorted=d_sorted,
+                       key_sorted=key_sorted, num_valid=num_valid)
+    rows, v = d_sorted.shape
+    if d_sorted.dtype != torch.float32 or rows != ATTR_ROWS:
+        raise ValueError(f"segment_reduce: d_sorted must be f32 "
+                         f"({ATTR_ROWS}, v)")
+    if key_sorted.dtype != torch.int32 or key_sorted.shape != (v,):
+        raise ValueError("segment_reduce: key_sorted must be int32 (v,)")
+    bounds = segment_bounds(key_sorted, num_valid, n)
+    out = torch.empty(rows, n, dtype=torch.float32, device=d_sorted.device)
+    p, i = kernels.ptr, kernels.i32
+    kernels.launch("segment_reduce", [p, i, p, i, p], d_sorted, v, bounds, n,
+                   out)
+    return out
+
+
+def pair_grads_to_gaussians(d_table, gid_sorted, num_valid, n: int):
+    """The binning's backward: the tile-sorted pair gradients (ATTR_ROWS,
+    L) summed per Gaussian into (ATTR_ROWS, n), original order. The key is
+    the tile-sorted Gaussian id where position < num_valid, else n; a stable
+    sort of it, K5b through its permutation, then K4."""
+    v = gid_sorted.shape[0]
+    pos = torch.arange(v, device=gid_sorted.device)
+    key = torch.where(pos < num_valid, gid_sorted, n).to(torch.int32)
+    perm = torch.sort(key, stable=True).indices
+    d_sorted, key_sorted = sort_back_rows(d_table.contiguous(), key, perm)
+    return segment_reduce(d_sorted, key_sorted, num_valid, n)
 
 
 # --- the forward binning pipeline ----------------------------------------
+
+def _rect_inputs(proj: ProjectedGaussians, width: int, height: int,
+                 tight: bool):
+    """Per Gaussian, original order: rect base tile, rect width, pair count
+    and the sort depth (inf for an empty rect)."""
+    base, nx, counts = _rect_geometry(proj, width, height, tight)
+    depth_eff = torch.where(counts > 0, proj.depth,
+                            torch.full_like(proj.depth, float("inf")))
+    return base, nx, counts, depth_eff
+
+
+def _depth_sort(attrs10, depth_eff, base, nx, counts) -> dict:
+    order = torch.sort(depth_eff, stable=True).indices
+    incl = torch.cumsum(counts[order], 0)
+    return dict(offsets=(incl - counts[order]).to(torch.int32),
+                base=base[order].contiguous(), nx=nx[order].contiguous(),
+                gid=order.to(torch.int32),
+                attrs=attrs10[:, order].contiguous(),
+                total=incl[-1:].to(torch.int32))
+
 
 def depth_sorted_rects(proj: ProjectedGaussians, width: int, height: int,
                        tight: bool = True) -> dict:
     """K1's inputs: the Gaussians sorted by depth (stable; empty rects last,
     at depth inf) with their exclusive pair offsets, rect base tiles, rect
     widths, ids and attribute rows, and the total pair count (1,)."""
-    base, nx, counts = _rect_geometry(proj, width, height, tight)
-    depth_eff = torch.where(counts > 0, proj.depth,
-                            torch.full_like(proj.depth, float("inf")))
-    order = torch.sort(depth_eff, stable=True).indices
-    incl = torch.cumsum(counts[order], 0)
-    return dict(offsets=(incl - counts[order]).to(torch.int32),
-                base=base[order].contiguous(), nx=nx[order].contiguous(),
-                gid=order.to(torch.int32),
-                attrs=pack_attributes(proj)[:, order].contiguous(),
-                total=incl[-1:].to(torch.int32))
+    base, nx, counts, depth_eff = _rect_inputs(proj, width, height, tight)
+    return _depth_sort(pack_attributes(proj), depth_eff, base, nx, counts)
+
+
+AUX_KEYS = ("tile_start", "tile_end", "gid_sorted", "num_valid", "num_rect",
+            "overflow_rect", "overflow_valid")
+
+
+class _BinSortedPairs(torch.autograd.Function):
+    """Forward: depth sort, K1, tile sort, K5 -> (table, *aux). Backward:
+    the pair gradients back to the (ATTR_ROWS, N) attribute rows by
+    :func:`pair_grads_to_gaussians`; the sort depth gets a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, attrs10, depth_eff, base, nx, counts, spec):
+        grid_x, num_tiles, p, v_cap = spec
+        rects = _depth_sort(attrs10, depth_eff, base, nx, counts)
+        tile_ids, gidp, pattrs, hist = expand_pairs(
+            **rects, p_cap=p, grid_x=grid_x, num_tiles=num_tiles)
+        ends = torch.cumsum(hist, 0).to(torch.int32)
+        num_valid = ends[-1]
+        num_rect = rects["total"][0]
+        perm = torch.sort(tile_ids, stable=True).indices
+        table, gid_sorted = gather_rows(pattrs, gidp, perm, v_cap,
+                                        v_cap + COMPOSITE_PAD)
+        aux = (torch.clamp_max(ends - hist, v_cap),
+               torch.clamp_max(ends, v_cap), gid_sorted, num_valid, num_rect,
+               torch.clamp_min(num_rect - p, 0),
+               torch.clamp_min(num_valid - v_cap, 0))
+        ctx.mark_non_differentiable(*aux)
+        ctx.save_for_backward(gid_sorted, num_valid)
+        ctx.n = attrs10.shape[1]
+        return (table,) + aux
+
+    @staticmethod
+    def backward(ctx, d_table, *_):
+        gid_sorted, num_valid = ctx.saved_tensors
+        d_attrs = pair_grads_to_gaussians(d_table, gid_sorted, num_valid,
+                                          ctx.n)
+        return d_attrs, None, None, None, None, None
 
 
 def bin_sorted_pairs(proj: ProjectedGaussians, width: int, height: int,
@@ -223,33 +364,17 @@ def bin_sorted_pairs(proj: ProjectedGaussians, width: int, height: int,
     Returns (table, aux): table is the (ATTR_ROWS, valid_capacity +
     COMPOSITE_PAD) tile-sorted pair table; aux holds tile_start / tile_end
     (clamped to valid_capacity), gid_sorted (valid_capacity,), num_valid,
-    num_rect, overflow_rect and overflow_valid, as in the JAX package."""
+    num_rect, overflow_rect and overflow_valid, as in the JAX package.
+    The table is differentiable with respect to ``pack_attributes(proj)``
+    (so to mean2d, conic, opacity, rgb and inverse depth); its backward
+    runs K5b and K4."""
     p = int(pair_capacity)
     v_cap = p if valid_capacity is None else int(valid_capacity)
     if v_cap > p:
         raise ValueError("valid_capacity must not exceed pair_capacity")
     grid_x, grid_y = grid_shape(width, height)
-    num_tiles = grid_x * grid_y
-    rects = depth_sorted_rects(proj, width, height, tight)
-    tile_ids, gidp, pattrs, hist = expand_pairs(
-        **rects, p_cap=p, grid_x=grid_x, num_tiles=num_tiles)
-
-    ends = torch.cumsum(hist, 0).to(torch.int32)
-    num_valid = ends[-1]
-    num_rect = rects["total"][0]
-    tile_start = torch.clamp_max(ends - hist, v_cap)
-    tile_end = torch.clamp_max(ends, v_cap)
-
-    perm = torch.sort(tile_ids, stable=True).indices
-    table, gid_sorted = gather_rows(pattrs, gidp, perm, v_cap,
-                                    v_cap + COMPOSITE_PAD)
-    aux = dict(
-        tile_start=tile_start,
-        tile_end=tile_end,
-        gid_sorted=gid_sorted,
-        num_valid=num_valid,
-        num_rect=num_rect,
-        overflow_rect=torch.clamp_min(num_rect - p, 0),
-        overflow_valid=torch.clamp_min(num_valid - v_cap, 0),
-    )
-    return table, aux
+    base, nx, counts, depth_eff = _rect_inputs(proj, width, height, tight)
+    table, *aux = _BinSortedPairs.apply(
+        pack_attributes(proj), depth_eff, base, nx, counts,
+        (grid_x, grid_x * grid_y, p, v_cap))
+    return table, dict(zip(AUX_KEYS, aux))

@@ -11,8 +11,8 @@ Numerical contract, as in the JAX package:
   * pixel coordinates ((v + 1) S - 1) / 2;
   * mean2d stays f32; conic, opacity, rgb and inverse depth are rounded
     once to bf16 (RTNE), kept in f32 tensors.
-Geometry products run in full f32: TF32 is switched off where they are
-computed.
+Geometry products run in full f32: the package switches TF32 off when it
+is imported.
 """
 
 from __future__ import annotations
@@ -133,7 +133,6 @@ def project_gaussians(
     colors_precomp: Optional[torch.Tensor] = None,
 ) -> ProjectedGaussians:
     """Full preprocess. Culled and padded rows get radius 0 and opacity 0."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     focal_x = width / (2.0 * tan_fovx)
     focal_y = height / (2.0 * tan_fovy)
 

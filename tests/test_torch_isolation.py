@@ -78,9 +78,22 @@ def _interop():
                               [0, 0, 0], 8, 8, 1.0, 1.0)
 
 
+def _create_from_points():
+    from priordepth_gaussiansplatting_torch.models import gaussians
+    gaussians.create_from_points(torch.rand(8, 3).numpy(),
+                                 torch.rand(8, 3).numpy(), num_images=1)
+
+
+def _adam_state():
+    from priordepth_gaussiansplatting_torch import interop
+    zeros = {k: torch.zeros(2).numpy() for k in interop.PARAM_FIELDS}
+    interop.adam_state_from_numpy(zeros, zeros, 0)
+
+
 @pytest.mark.parametrize("entry", ["resolve_device", "look_at_camera",
                                    "load_model_snapshot", "render_cli",
-                                   "interop"])
+                                   "interop", "create_from_points",
+                                   "adam_state_from_numpy"])
 def test_entry_points_need_the_card_or_cpu(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -90,6 +103,8 @@ def test_entry_points_need_the_card_or_cpu(entry, tmp_path):
         "load_model_snapshot": lambda: _load_snapshot(tmp_path),
         "render_cli": lambda: _render_cli(tmp_path),
         "interop": _interop,
+        "create_from_points": _create_from_points,
+        "adam_state_from_numpy": _adam_state,
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -79,6 +79,81 @@ def test_composite_kernel_matches_plain(card):
     assert (got[3] == want[3]).float().mean() >= 0.999
 
 
+def test_composite_bwd_kernel_matches_plain(card):
+    proj = _projected(card)
+    table, aux = binning.bin_sorted_pairs(proj, 256, 256, 1 << 16)
+    ts, te = aux["tile_start"], aux["tile_end"]
+    color, invd, t_fin, n_eval = rasterize.composite_fwd(table, ts, te, 16)
+    gen = torch.Generator(device=card).manual_seed(0)
+    cts = [torch.randn(s, generator=gen, device=card)
+           for s in (color.shape, invd.shape, t_fin.shape)]
+    args = (table, ts, te, 16, *cts, color, invd, t_fin)
+    before = kernels.launch_counts()["composite_bwd"]
+    got, got_eval = rasterize.composite_bwd(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["composite_bwd"] == before + 1
+    want, want_eval = rasterize.composite_bwd_plain(*args)
+    assert (got_eval == n_eval).float().mean() >= 0.999
+    assert (want_eval == n_eval).float().mean() >= 0.999
+    nv = int(aux["num_valid"])
+    for r in range(binning.ATTR_ROWS):
+        a, b = got[r, :nv], want[r, :nv]
+        tol = 3e-4 * b.abs().max() + 2e-3 * b.abs()
+        assert ((a - b).abs() <= tol).float().mean() >= 0.999, r
+    assert float(got[:, nv:].abs().max()) == 0.0
+
+
+def test_sort_back_and_segment_reduce_kernels_equal_plain(card):
+    rng = np.random.default_rng(1)
+    n, v = 3000, 50_000
+    key = torch.from_numpy(rng.integers(0, n + 1, v, dtype=np.int32)).to(card)
+    d_table = torch.from_numpy(
+        rng.standard_normal((10, v + 1024), dtype=np.float32)).to(card)
+    perm = torch.sort(key, stable=True).indices
+    before = kernels.launch_counts()
+    d_sorted, key_sorted = binning.sort_back_rows(d_table, key, perm)
+    want = binning.gather_rows_plain(d_table, key, perm, v, v)
+    assert torch.equal(d_sorted, want[0]) and torch.equal(key_sorted, want[1])
+    num_valid = torch.tensor(v - 777, dtype=torch.int32, device=card)
+    got = binning.segment_reduce(d_sorted, key_sorted, num_valid, n)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["gather_rows_bwd"] == before["gather_rows_bwd"] + 1
+    assert after["gather_rows"] == before["gather_rows"]
+    assert after["segment_reduce"] == before["segment_reduce"] + 1
+    want = binning.segment_reduce_plain(d_sorted, key_sorted, num_valid, n)
+    scale = want.abs().amax(1, keepdim=True)
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
+def test_rasterize_gradients_on_card_match_cpu(card):
+    proj = _projected(card)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=card)
+
+    def grads(p, b):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in vars(p).items() if v.is_floating_point()}
+        out = rasterize.rasterize(p.replace(**leaves), b, 256, 256)
+        loss = (out["render"].square().mean()
+                + 0.1 * out["invdepth"].abs().mean())
+        return dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()), allow_unused=True)))
+
+    before = kernels.launch_counts()
+    got = grads(proj, bg)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for name in ("composite_bwd", "gather_rows_bwd", "segment_reduce"):
+        assert after[name] == before[name] + 1, name
+    want = grads(projection.ProjectedGaussians(
+        **{k: v.cpu() for k, v in vars(proj).items()}), bg.cpu())
+    for k in ("mean2d", "conic", "opacity", "rgb", "invdepth"):
+        g, w = got[k].cpu(), want[k]
+        assert bool(torch.isfinite(g).all()), k
+        torch.testing.assert_close(g, w, atol=3e-4 * float(w.abs().max()),
+                                   rtol=2e-3)
+
+
 def test_rasterize_on_card_matches_cpu(card):
     proj = _projected(card)
     bg = torch.tensor([0.1, 0.2, 0.3], device=card)
