@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # one card, every phase below
+    python3 chip_smoke.py --ranks 4  # only the multi-rank phase, 4 cards
 
 Builds the port's CUDA kernels from ``priordepth_gaussiansplatting_torch/
 csrc/`` (one nvcc per source, in parallel), then runs, printing one JSON
@@ -28,12 +29,34 @@ line per phase:
   5. train_mid: the mid scene's parameter gradients from the kernels
      against those from the plain versions on the same card, then 3 steps,
      a densify round, an opacity reset and 2 more steps;
-  6. cli: the port's render CLI on a raycast synthetic scene;
-  7. kernels: one object per kernel (the line before the card's line).
+  6. bands: view 0 of the full scene composited band by band with K6
+     (ops.rasterize.composite_bands, forward and backward) in 4 and in 3
+     bands, the launch counts of that run; the assembled frame against K2
+     and the summed band gradients against K3, bit for bit; two slices of
+     8 slots (the busiest tiles; the last tiles and the pad slots) and a
+     whole band against the plain version; CUDA-event times per band;
+  7. sharded: parallel.integrate.make_sharded_fns in a one-rank NCCL
+     process group on the card: 10 steps over the three views of the full
+     scene (every step's launches, guard and gradients checked), 3 steps
+     against train.step.make_train_step from the same state, then on the
+     mid scene a sharded densify round, an opacity reset and a step;
+  8. cli: the port's render CLI on a raycast synthetic scene;
+  9. kernels: one object per kernel (the line before the card's line).
 Then the card's name and power limit as nvidia-smi prints them, and last
-``{"ok": true, "device": {...}}``. Any failure raises: the script exits
-non-zero, and it does so before printing a result when there is no CUDA
-card or when the port is not beside it.
+``{"ok": true, "device": {...}}``.
+
+With ``--ranks N`` it builds the kernels and runs one phase, multi_rank:
+N processes, one per card, in an NCCL group (parallel/mesh.py::spawn). On
+the full scene each rank runs the sharded step for the grids (1, N) with
+tile bands (K6), (1, N), (N, 1) and, for N = 4, (2, 2) with tile bands:
+one step against single-rank steps on its own card (the mean over the
+batch's views of their gradients, its own rows, gradient tolerance), then
+10 steps with every launch count and guard checked, and the time per step
+beside the single-rank step's on the same card.
+
+Any failure raises: the script exits non-zero, and it does so before
+printing a result when there is no CUDA card or when the port is not
+beside it.
 
 Tolerances: K1 (pair expansion) and K5a (pair table) must equal their plain
 versions bit for bit; K1's only allowed difference is a pair whose box
@@ -45,8 +68,12 @@ backward) per-pair rows within 3e-4 max|row| + 2e-3 |ref| on >= 99.9% of
 entries (the JAX package's gradient rule; a stop moved by one pair moves
 the rest of that pixel's pairs), and its evaluated pairs equal to K2's on
 >= 99.9% of pixels. K5b (sort-back) bit for bit. K4 (per-Gaussian sum)
-within 1e-5 max|row| of a float64 sum. Parameter gradients, kernels against
-plain versions: atol 3e-4 max|g|, rtol 2e-3.
+within 1e-5 max|row| of a float64 sum. K6 (the band compositor): the
+assembled bands equal K2's frame and the summed band tables K3's bit for
+bit, each band's table is zero outside its pairs, and against its plain
+version K2's and K3's rules. Parameter gradients, kernels against plain
+versions, and the sharded step against the single-rank step: atol 3e-4
+max|g|, rtol 2e-3.
 """
 
 from __future__ import annotations
@@ -81,10 +108,26 @@ KERNELS = {
     "composite_bwd": ("K3", "composite_bwd", TPU + "rasterize_pallas.py:418"),
     "gather_rows_bwd": ("K5b", "gather_rows", TPU + "binning.py:1051"),
     "segment_reduce": ("K4", "segment_reduce", TPU + "binning.py:429"),
+    # K6: _make_composite(num_local_tiles=...) through composite_bands.
+    "composite_fwd_bands": ("K6", "composite_fwd",
+                            TPU + "rasterize_pallas.py:913"),
+    "composite_bwd_bands": ("K6", "composite_bwd",
+                            TPU + "rasterize_pallas.py:913"),
 }
 FORWARD = ("expand_pairs", "gather_rows", "composite_fwd")
+# The kernels of one train step on the whole frame (single-rank or sharded
+# on one rank), each launched once per step.
+STEP = ("expand_pairs", "gather_rows", "composite_fwd", "composite_bwd",
+        "gather_rows_bwd", "segment_reduce")
+BANDS = ("composite_fwd_bands", "composite_bwd_bands")
+# ... and of a step whose compositor is split into tile bands (K6).
+TILE_STEP = ("expand_pairs", "gather_rows", "gather_rows_bwd",
+             "segment_reduce") + BANDS
+BAND_COUNTS = (4, 3)
 FULL_N, FULL_W, FULL_H = 1_000_000, 1600, 1066
 FULL_EYES = [(0.0, 0.0, -2.5), (0.25, -0.15, -2.45), (-0.3, 0.1, -2.4)]
+# --ranks: a fourth view, so that four data ranks see four cameras.
+MULTI_EYES = FULL_EYES + [(0.15, 0.2, -2.45)]
 MID_N, MID_WH = 65_536, 512
 TRAIN_STEPS = 10
 GRAD_ATOL, GRAD_RTOL = 3e-4, 2e-3
@@ -222,7 +265,9 @@ class Smoke:
                 d, key, perm, key.shape[0], key.shape[0])),
             (b, "segment_reduce", b.segment_reduce_plain),
             (r, "composite_fwd", r.composite_fwd_plain),
-            (r, "composite_bwd", r.composite_bwd_plain)])
+            (r, "composite_bwd", r.composite_bwd_plain),
+            (r, "composite_fwd_bands", r.composite_fwd_bands_plain),
+            (r, "composite_bwd_bands", r.composite_bwd_bands_plain)])
 
     def recording(self, store):
         """The backward kernels' wrappers, recording their arguments
@@ -250,10 +295,11 @@ class Smoke:
                                     device=self.dev)
 
     def used_evaluations(self, table, ts, te, grid_x):
-        """(pixel, pair) evaluations of kept pairs before each pixel's stop,
-        over all tiles: the evaluations K3 does its extra work for."""
+        """Per tile, the (pixel, pair) evaluations of kept pairs before each
+        pixel's stop: the evaluations K3 does its extra work for (int64,
+        one per tile)."""
         t, b, r = self.torch, self.binning, self.rasterize
-        total = t.zeros((), dtype=t.int64, device=self.dev)
+        total = t.zeros(ts.shape[0], dtype=t.int64, device=self.dev)
         for tile, (s, e) in enumerate(zip(ts.tolist(), te.tolist())):
             if e <= s:
                 continue
@@ -269,8 +315,8 @@ class Smoke:
             keep = (power <= 0.0) & (alpha >= r.ALPHA_MIN)
             a = t.where(keep, alpha, t.zeros_like(alpha))
             live = t.cumprod(1.0 - a, dim=1) >= r.T_EPS
-            total += (keep & live).sum()
-        return int(total)
+            total[tile] = (keep & live).sum()
+        return total
 
     # --- kernel vs plain -----------------------------------------------------
 
@@ -401,6 +447,7 @@ class Smoke:
         p_cap = max(c[0] for c in caps)
         v_cap = max(c[1] for c in caps)
         bg = t.zeros(3, device=self.dev)
+        self.full = dict(state=state, cams=cams, p_cap=p_cap, v_cap=v_cap)
 
         def render(cam):
             return self.render.render(cam, state, bg, antialiasing=True,
@@ -522,9 +569,12 @@ class Smoke:
         self.phase_profile(render, cams)
 
     def phase_profile(self, fn, cams, phase: str = "profile"):
-        """Where a frame's time goes: device time by kernel name and host
-        time by operator, from torch.profiler over one call of `fn` per
-        view."""
+        """Where a frame's time goes (see :meth:`profile`), as a phase."""
+        emit(phase, **self.profile(fn, cams))
+
+    def profile(self, fn, cams) -> dict:
+        """Device time by kernel name and host time by operator, from
+        torch.profiler over one call of `fn` per view."""
         t = self.torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -548,15 +598,17 @@ class Smoke:
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
         host = sorted(prof.key_averages(),
                       key=lambda e: -e.self_cpu_time_total)[:10]
-        emit(phase, frames=frames, traced_wall_ms_per_frame=wall_ms / frames,
-             device_ms_per_frame=device_ms / frames,
-             device_busy_share=device_ms / wall_ms,
-             device_ops_per_frame=sum(v[1] for v in by_name.values()) / frames,
-             device_top=[{"name": n[:100], "ms_per_frame": v[0] / frames,
-                          "calls_per_frame": v[1] / frames} for n, v in top],
-             host_top=[{"name": e.key[:60],
-                        "self_ms_per_frame": e.self_cpu_time_total / 1e3 / frames,
-                        "calls_per_frame": e.count / frames} for e in host])
+        return dict(
+            frames=frames, traced_wall_ms_per_frame=wall_ms / frames,
+            device_ms_per_frame=device_ms / frames,
+            device_busy_share=device_ms / wall_ms,
+            device_ops_per_frame=sum(v[1] for v in by_name.values()) / frames,
+            device_top=[{"name": n[:100], "ms_per_frame": v[0] / frames,
+                         "calls_per_frame": v[1] / frames} for n, v in top],
+            host_top=[{"name": e.key[:60],
+                       "self_ms_per_frame":
+                           e.self_cpu_time_total / 1e3 / frames,
+                       "calls_per_frame": e.count / frames} for e in host])
 
     # --- training ------------------------------------------------------------
 
@@ -569,10 +621,11 @@ class Smoke:
             valid_capacity=v_cap)
 
     def checked_step(self, fns, state, opt, cam, it, bg, label,
-                     groups=None):
-        """One train step with its launch counts, guard and gradients (of
-        `groups`, default all) checked. The gradient of each group is read
-        back from Adam's first moment (mu' = 0.9 mu + 0.1 g)."""
+                     groups=None, path=STEP):
+        """One train step with its launch counts (one of each kernel of
+        `path`, none of the others), guard and gradients (of `groups`,
+        default all) checked. The gradient of each group is read back from
+        Adam's first moment (mu' = 0.9 mu + 0.1 g)."""
         t, k = self.torch, self.kernels
         mu0 = {n: getattr(opt.mu, n).clone()
                for n in groups or self.interop.PARAM_FIELDS}
@@ -582,7 +635,8 @@ class Smoke:
         t.cuda.synchronize()
         after = k.launch_counts()
         delta = {n: after[n] - before[n] for n in KERNELS}
-        assert all(v == 1 for v in delta.values()), (label, it, delta)
+        assert delta == {n: int(n in path) for n in KERNELS}, \
+            (label, it, delta)
         m = {key: float(v) for key, v in m.items()}
         assert m["skipped"] == 0 and m["overflow"] == 0, (label, it, m)
         assert np.isfinite(m["loss"]), (label, it, m)
@@ -622,7 +676,7 @@ class Smoke:
                           ("loss", "l1", "ssim", "depth_loss", "n_visible",
                            "num_pairs")})
         launches = k.launch_counts()
-        assert all(launches[n] == TRAIN_STEPS for n in KERNELS), launches
+        assert all(launches[n] == TRAIN_STEPS for n in STEP), launches
 
         # The backward kernels against their plain versions on view 0's own
         # intermediates, as the step handed them over.
@@ -707,7 +761,7 @@ class Smoke:
         n_tiles, length = ts.shape[0], table.shape[1]
         nv = min(int(num_valid), v)
         n_evals = int(n_eval.sum())
-        n_used = self.used_evaluations(table, ts, te, grid_x)
+        n_used = int(self.used_evaluations(table, ts, te, grid_x).sum())
         work = {
             "composite_bwd": (40 * nv + 40 * length + 8 * n_tiles
                               + 44 * 256 * n_tiles,
@@ -800,7 +854,7 @@ class Smoke:
                 runs[label] = fns.step(state, opt, cams[0], 1, None, bg)
                 t.cuda.synchronize()
                 runs[label] += (sum(k.launch_counts().values()) - before,)
-        assert runs["kernels"][3] == len(KERNELS) and runs["plain"][3] == 0
+        assert runs["kernels"][3] == len(STEP) and runs["plain"][3] == 0
         loss_k, loss_p = (float(runs[x][2]["loss"]) for x in runs)
         assert abs(loss_k - loss_p) <= 1e-5, (loss_k, loss_p)
         grad_err = {}
@@ -857,6 +911,472 @@ class Smoke:
              steps=[{key: s[key] for key in ("loss", "n_active", "num_pairs",
                                              "skipped")} for s in steps])
 
+    def k6_within(self, table, grid_x, ids, start, end, cts, fwd=None):
+        """K6 against its plain version on one slice of slots: forward by
+        K2's rule, backward by K3's on the slots' columns, nothing written
+        outside them. Returns the largest forward and backward errors."""
+        t, r = self.torch, self.rasterize
+        got = r.composite_fwd_bands(table, start, end, grid_x, ids)
+        want = fwd or r.composite_fwd_bands_plain(table, start, end, grid_x,
+                                                  ids)
+        t.cuda.synchronize()
+        err_f = 0.0
+        for g, w in zip(got[:3], want[:3]):
+            diff = (g - w).abs()
+            err_f = max(err_f, float(diff.max()))
+            assert float((diff <= 2e-5).float().mean()) >= 0.999
+            assert float(diff.max()) <= 5e-3, float(diff.max())
+        assert float((got[3] == want[3]).float().mean()) >= 0.999
+        args = (table, start, end, grid_x, ids, cts[0], cts[1][0], cts[2][0],
+                *got[:3])
+        d_got, e_got = r.composite_bwd_bands(*args)
+        d_want, e_want = r.composite_bwd_bands_plain(*args)
+        t.cuda.synchronize()
+        cols = t.cat([t.arange(s, e, device=self.dev) for s, e in
+                      zip(start.tolist(), end.tolist())])
+        a, w = d_got[:, cols], d_want[:, cols]
+        within = ((a - w).abs() <= GRAD_ATOL * w.abs().amax(1, keepdim=True)
+                  + GRAD_RTOL * w.abs()).float().mean(1)
+        assert float(within.min()) >= 0.999, f"K6 rows: {within.tolist()}"
+        assert float((e_got == e_want).float().mean()) >= 0.999
+        outside = d_got.clone()
+        outside[:, cols] = 0.0
+        assert float(outside.abs().max()) == 0.0, "K6 wrote outside its band"
+        err_b = float((a - w).abs().max()) if cols.numel() else 0.0
+        return err_f, err_b
+
+    def phase_bands(self):
+        """K6 on view 0 of the full scene, band by band, against K2 and K3
+        on the whole frame and against its plain version."""
+        t, k, b, r = self.torch, self.kernels, self.binning, self.rasterize
+        f = self.full
+        w, h = FULL_W, FULL_H
+        with t.no_grad():
+            table, aux = b.bin_sorted_pairs(self.project(f["cams"][0],
+                                                         f["state"]),
+                                            w, h, f["p_cap"], f["v_cap"])
+        ts, te = aux["tile_start"], aux["tile_end"]
+        grid_x, _ = b.grid_shape(w, h)
+        nt = int(ts.shape[0])
+        gen = t.Generator(device=self.dev).manual_seed(0)
+        cts = [t.randn(c, nt, r.PIX, generator=gen, device=self.dev)
+               for c in (3, 1, 1)]
+        whole = r.composite_fwd(table, ts, te, grid_x)
+        d_whole, _ = r.composite_bwd(table, ts, te, grid_x, cts[0],
+                                     cts[1][0], cts[2][0], *whole[:3])
+
+        def band_cts(ids, n, m):
+            """The frame's cotangents at the band's slots, 0 at pads."""
+            real = (t.arange(ids.shape[0], device=self.dev)
+                    + m * ids.shape[0]) < nt
+            return [c[:, ids.long()] * real[None, :, None] for c in cts]
+
+        # The main path: every count at 0 just before, read just after.
+        t.cuda.synchronize()
+        k.reset_launch_counts()
+        runs = {}
+        for n in BAND_COUNTS:
+            runs[n] = []
+            for m in range(n):
+                ids, start, end = r.band_slots(ts, te, n, m)
+                tab = table.detach().requires_grad_(True)
+                outs = r.composite_bands(tab, ids, start, end, w, h)
+                loss = sum((o * c).sum() for o, c in
+                           zip(outs, band_cts(ids, n, m)))
+                d_tab = t.autograd.grad(loss, tab)[0]
+                runs[n].append(([o.detach() for o in outs], d_tab,
+                                (ids, start, end)))
+        t.cuda.synchronize()
+        launches = k.launch_counts()
+        total = sum(BAND_COUNTS)
+        assert all(launches[x] == total for x in BANDS), launches
+        assert all(launches[x] == 0 for x in STEP), launches
+
+        # Bands against the frame: K2's outputs and K3's table exactly.
+        for n, bands in runs.items():
+            for kk, want in enumerate((whole[0], whole[1][None],
+                                       whole[2][None])):
+                got = t.cat([o[kk] for o, _, _ in bands], 1)[:, :nt]
+                assert bits_equal(t, got, want), (n, kk)
+            d_sum = None
+            for m, (_, d_tab, (ids, start, end)) in enumerate(bands):
+                lo, hi = int(start[0]), int(te[min((m + 1) * ids.shape[0],
+                                                   nt) - 1])
+                outside = d_tab.clone()
+                outside[:, lo:hi] = 0.0
+                assert float(outside.abs().max()) == 0.0, (n, m)
+                d_sum = d_tab if d_sum is None else d_sum + d_tab
+            assert bool(t.equal(d_sum, d_whole)), f"{n} bands differ from K3"
+        assert float(d_whole.abs().max()) > 0
+
+        # Against the plain version: the 8 busiest slots of band 0 of 3,
+        # the last 8 slots of band 2 of 3 (pads among them), band 0 of 4.
+        ids, start, end = r.band_slots(ts, te, 3, 0)
+        top = t.argsort(end - start, descending=True, stable=True)[:8]
+        ids2, start2, end2 = r.band_slots(ts, te, 3, 2)
+        slices = {"busiest8": (ids[top], start[top], end[top], 3, 0),
+                  "last8": (ids2[-8:], start2[-8:], end2[-8:], 3, 2)}
+        errs = {}
+        for name, (i, s_, e_, n, m) in slices.items():
+            sl_cts = [c[:, i.long()] * (e_ > s_)[None, :, None]
+                      for c in cts]
+            errs[name] = self.k6_within(table, grid_x, i.contiguous(),
+                                        s_.contiguous(), e_.contiguous(),
+                                        sl_cts)
+        assert int((ids2[-8:] == 0).sum()) >= 1, "no pad slot checked"
+        ids0, s0, e0 = r.band_slots(ts, te, 4, 0)
+        c0 = band_cts(ids0, 4, 0)
+        plain = {}
+
+        def plain_fwd():
+            plain["fwd"] = r.composite_fwd_bands_plain(table, s0, e0, grid_x,
+                                                       ids0)
+        plain_ms = {"composite_fwd_bands": cuda_ms(t, plain_fwd, reps=1,
+                                                   warmup=False)}
+        fwd0 = r.composite_fwd_bands(table, s0, e0, grid_x, ids0)
+        args0 = (table, s0, e0, grid_x, ids0, c0[0], c0[1][0], c0[2][0],
+                 *fwd0[:3])
+        plain_ms["composite_bwd_bands"] = cuda_ms(
+            t, lambda: r.composite_bwd_bands_plain(*args0), reps=1,
+            warmup=False)
+        errs["band0_of_4"] = self.k6_within(table, grid_x, ids0, s0, e0, c0,
+                                            fwd=plain["fwd"])
+        self.results["errs"].update(
+            composite_fwd_bands=max(e[0] for e in errs.values()),
+            composite_bwd_bands=max(e[1] for e in errs.values()))
+
+        # Times per band (CUDA events) and each band's least time.
+        used = self.used_evaluations(table, ts, te, grid_x)
+        length = table.shape[1]
+        per_band = {}
+        for n in BAND_COUNTS:
+            rows = []
+            for m in range(n):
+                i, s_, e_ = r.band_slots(ts, te, n, m)
+                c_ = band_cts(i, n, m)
+                fw = r.composite_fwd_bands(table, s_, e_, grid_x, i)
+                a_ = (table, s_, e_, grid_x, i, c_[0], c_[1][0], c_[2][0],
+                      *fw[:3])
+                slots = int(i.shape[0])
+                pairs = int((e_ - s_).sum())
+                evals = int(fw[3].sum())
+                n_used = int(used[i.long()][e_ > s_].sum())
+                fb = bound(40 * pairs + 12 * slots + 24 * 256 * slots,
+                           K2_OPS_PER_EVAL * evals)
+                bb = bound(40 * pairs + 40 * length + 12 * slots
+                           + 44 * 256 * slots,
+                           K2_OPS_PER_EVAL * evals + K3_OPS_PER_USED * n_used)
+                rows.append(dict(
+                    band=m, slots=slots, pads=max((m + 1) * slots - nt, 0),
+                    pairs=pairs, evals=evals, used=n_used,
+                    fwd_ms=cuda_ms(t, lambda: r.composite_fwd_bands(
+                        table, s_, e_, grid_x, i)),
+                    bwd_ms=cuda_ms(t, lambda: r.composite_bwd_bands(*a_)),
+                    fwd_bound_ms=fb[0], fwd_bound_by=fb[1],
+                    bwd_bound_ms=bb[0], bwd_bound_by=bb[1]))
+            per_band[n] = rows
+        frame = {"K2": cuda_ms(t, lambda: r.composite_fwd(table, ts, te,
+                                                          grid_x)),
+                 "K3": cuda_ms(t, lambda: r.composite_bwd(
+                     table, ts, te, grid_x, cts[0], cts[1][0], cts[2][0],
+                     *whole[:3]))}
+        for n, rows in per_band.items():
+            frame[f"K6_fwd_{n}_bands"] = sum(x["fwd_ms"] for x in rows)
+            frame[f"K6_bwd_{n}_bands"] = sum(x["bwd_ms"] for x in rows)
+        first = per_band[BAND_COUNTS[0]][0]
+        for x, key in (("composite_fwd_bands", "fwd"),
+                       ("composite_bwd_bands", "bwd")):
+            self.results["launches"][x] = launches[x]
+            self.results["ms"][x] = first[f"{key}_ms"]
+            self.results["bound_ms"][x] = first[f"{key}_bound_ms"]
+            self.results["bound_by"][x] = first[f"{key}_bound_by"]
+            self.results["plain_ms"][x] = plain_ms[x]
+            self.results["library_ms"][x] = None
+        del self.full
+        emit("bands", ok=True, n=FULL_N, width=w, height=h, tiles=nt,
+             bands=list(BAND_COUNTS), launches={x: launches[x] for x in
+                                                BANDS + STEP},
+             max_abs_err={name: list(e) for name, e in errs.items()},
+             per_band={str(n): rows for n, rows in per_band.items()},
+             ms_per_frame=frame, plain_ms_band0_of_4=plain_ms)
+
+    def phase_sharded(self):
+        """The sharded step in a one-rank NCCL group on the card."""
+        import torch.distributed as dist
+        from priordepth_gaussiansplatting_torch.models import gaussians
+        from priordepth_gaussiansplatting_torch.parallel import integrate
+        from priordepth_gaussiansplatting_torch.parallel import mesh as pmesh
+        from priordepth_gaussiansplatting_torch.parallel import step as pstep
+        t, T, k, cfg = self.torch, self.testing, self.kernels, self.config
+        with tempfile.TemporaryDirectory() as tmp:
+            assert pmesh.initialize_multihost(
+                f"file://{tmp}/store", world_size=1, rank=0, device=self.dev)
+            try:
+                mesh = pmesh.Mesh(1, 1, device=self.dev)
+                assert mesh.backend == dist.get_backend() == \
+                    pmesh.backend_for(self.dev)
+                assert self.dev.type != "cuda" or mesh.backend == "nccl"
+                out = self.sharded_runs(mesh, integrate, pstep, gaussians)
+            finally:
+                dist.destroy_process_group()
+        emit("sharded", ok=True, backend=mesh.backend, world=1, **out)
+
+    def sharded_runs(self, mesh, integrate, pstep, gaussians):
+        t, T, k, cfg = self.torch, self.testing, self.kernels, self.config
+        opt_cfg = cfg.OptimizationConfig(depth_feedback=True)
+        pipe_cfg = cfg.PipelineConfig(antialiasing=True, backend="kernels")
+        g = T.random_gaussians(0, FULL_N, extent=1.0,
+                               scale_range=(0.001, 0.004))
+        state0 = self.state(g, num_images=len(FULL_EYES))
+        cams = self.train_cameras(FULL_EYES, FULL_W, FULL_H, seed=1)
+        batches = [pstep.stack_cameras([c]) for c in cams]
+        p_cap, _ = self.view_capacities(state0, cams, headroom=1.25)
+        fns = integrate.make_sharded_fns(opt_cfg, pipe_cfg, mesh,
+                                         use_trained_exp=True,
+                                         pair_capacity=p_cap)
+        single = self.step.make_train_step(opt_cfg, pipe_cfg,
+                                           use_trained_exp=True,
+                                           pair_capacity=p_cap)
+        bg = t.zeros(3, device=self.dev)
+
+        # 3 steps of each from the same state on the same views.
+        s1, o1 = integrate.place_sharded(
+            state0, self.optim.init_adam(state0.params), mesh)
+        s2, o2 = state0, self.optim.init_adam(state0.params)
+        loss_diff = []
+        for it in (1, 2, 3):
+            s1, o1, m1 = fns.step(s1, o1, batches[it - 1], it, None, bg)
+            s2, o2, m2 = single.step(s2, o2, cams[it - 1], it, None, bg)
+            loss_diff.append(abs(float(m1["loss"]) - float(m2["loss"])))
+            assert int(m1["skipped"]) == 0 == int(m2["skipped"])
+        assert max(loss_diff) <= 1e-5, loss_diff
+        vs_single = {}
+        pairs = [(f"mu.{n}", getattr(o1.mu, n), getattr(o2.mu, n))
+                 for n in self.interop.PARAM_FIELDS]
+        pairs += [("xyz", s1.params.xyz, s2.params.xyz),
+                  ("xyz_gradient_accum", s1.xyz_gradient_accum,
+                   s2.xyz_gradient_accum)]
+        for n, got, want in pairs:
+            diff = (got - want).abs()
+            ok = diff <= GRAD_ATOL * float(want.abs().max()) \
+                + GRAD_RTOL * want.abs()
+            vs_single[n] = {"max_abs": float(diff.max()),
+                            "within": float(ok.float().mean())}
+            assert bool(ok.all()), (n, vs_single[n])
+        del s1, o1, s2, o2
+
+        # The main path: every count at 0 just before, read just after.
+        state, opt = integrate.place_sharded(
+            state0, self.optim.init_adam(state0.params), mesh)
+        t.cuda.synchronize()
+        k.reset_launch_counts()
+        steps = []
+        for i in range(TRAIN_STEPS):
+            state, opt, m = self.checked_step(fns, state, opt,
+                                              batches[i % len(cams)], i + 1,
+                                              bg, "sharded")
+            steps.append({key: m[key] for key in ("loss", "l1", "num_pairs",
+                                                  "n_active")})
+        launches = k.launch_counts()
+        assert all(launches[n] == TRAIN_STEPS for n in STEP), launches
+        assert all(launches[n] == 0 for n in BANDS), launches
+
+        def host_ms(fn):
+            """ms per step over the three views (after one warm-up step)
+            and the peak memory."""
+            fn(0)
+            t.cuda.synchronize()
+            t.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for i in range(len(cams)):
+                fn(i)
+            t.cuda.synchronize()
+            return ((time.perf_counter() - t0) * 1e3 / len(cams),
+                    t.cuda.max_memory_allocated() / 2 ** 30)
+
+        # The two steps in turns (sharded, single, single, sharded).
+        step_fns = {
+            "sharded": lambda i: fns.step(state, opt, batches[i], 11, None,
+                                          bg),
+            "single": lambda i: single.step(state, opt, cams[i], 11, None,
+                                            bg)}
+        step_ms = {"sharded": [], "single": []}
+        step_gib = dict.fromkeys(step_ms, 0.0)
+        for name in ("sharded", "single", "single", "sharded"):
+            ms, gib = host_ms(step_fns[name])
+            step_ms[name].append(ms)
+            step_gib[name] = max(step_gib[name], gib)
+        del state, opt, state0, step_fns
+
+        # The mid scene: two steps, a sharded densify round, an opacity
+        # reset and a step.
+        wh = MID_WH
+        mstate = gaussians.grow_capacity(
+            self.state(T.random_gaussians(1, MID_N)), 2 * MID_N)
+        mcams = self.train_cameras([(0.0, 0.0, -2.5), (0.2, -0.1, -2.4)], wh,
+                                   wh, seed=2)
+        mbatch = [pstep.stack_cameras([c]) for c in mcams]
+        p2, _ = self.view_capacities(mstate, mcams)
+        mfns = integrate.make_sharded_fns(opt_cfg, pipe_cfg, mesh,
+                                          pair_capacity=p2)
+        ms_, mo = integrate.place_sharded(
+            mstate, self.optim.init_adam(mstate.params), mesh)
+        per_gaussian = self.optim.PER_GAUSSIAN
+        for it in (1, 2):
+            ms_, mo, _ = self.checked_step(mfns, ms_, mo, mbatch[it % 2], it,
+                                           bg, "sharded_mid",
+                                           groups=per_gaussian)
+        mean_grad = ms_.xyz_gradient_accum / t.clamp_min(ms_.denom, 1.0)
+        threshold = float(t.quantile(mean_grad[mean_grad > 0], 0.9))
+        dfns = integrate.make_sharded_fns(
+            cfg.OptimizationConfig(depth_feedback=True,
+                                   densify_grad_threshold=threshold),
+            pipe_cfg, mesh, pair_capacity=p2)
+        n_before = int(ms_.num_active)
+        ms_, mo, info = dfns.densify(ms_, mo, seed=0)
+        info = {key: int(v) for key, v in info.items()}
+        assert info["n_cloned"] + info["n_split"] > 0, info
+        assert info["n_active"] == int(ms_.num_active) == (
+            n_before + info["n_cloned"] + info["n_split"]
+            - info["n_pruned"]), (n_before, info)
+        ms_, mo = dfns.reset_opacity(ms_, mo)
+        p3, _ = self.view_capacities(ms_, mcams)
+        mfns = integrate.make_sharded_fns(opt_cfg, pipe_cfg, mesh,
+                                          pair_capacity=p3)
+        ms_, mo, m = self.checked_step(mfns, ms_, mo, mbatch[1], 3, bg,
+                                       "sharded_mid", groups=per_gaussian)
+        assert int(m["n_active"]) == info["n_active"]
+        return dict(n=FULL_N, width=FULL_W, height=FULL_H, views=len(cams),
+                    steps=TRAIN_STEPS, p_cap=p_cap, per_step=steps,
+                    launches={n: launches[n] for n in STEP + BANDS},
+                    vs_single_3_steps=vs_single, loss_diff=loss_diff,
+                    step_ms_in_turns=step_ms, step_peak_mem_gib=step_gib,
+                    mid=dict(n=MID_N, capacity=ms_.capacity,
+                             densify_threshold=threshold,
+                             n_active_before=n_before, densify=info,
+                             step_after_reset={key: m[key] for key in
+                                               ("loss", "n_active",
+                                                "num_pairs", "skipped")}))
+
+    def multi_runs(self, world: int) -> dict:
+        """This rank's part of ``--ranks``: for each rank grid (n_data,
+        n_gauss, tile bands) over the world's process group, one sharded
+        step from the full scene against single-rank steps on this rank's
+        card (the mean over the batch's views of their gradients, this
+        rank's rows), then 10 checked steps with their launches, and the
+        time per step."""
+        import torch.distributed as dist
+        from priordepth_gaussiansplatting_torch.parallel import integrate
+        from priordepth_gaussiansplatting_torch.parallel import mesh as pmesh
+        from priordepth_gaussiansplatting_torch.parallel import step as pstep
+        t, T, k, cfg = self.torch, self.testing, self.kernels, self.config
+        opt_cfg = cfg.OptimizationConfig(depth_feedback=True)
+        pipe_cfg = cfg.PipelineConfig(antialiasing=True, backend="kernels")
+        g = T.random_gaussians(0, FULL_N, extent=1.0,
+                               scale_range=(0.001, 0.004))
+        state0 = self.state(g, num_images=len(MULTI_EYES))
+        cams = self.train_cameras(MULTI_EYES, FULL_W, FULL_H, seed=1)
+        p_cap, _ = self.view_capacities(state0, cams, headroom=1.25)
+        single = self.step.make_train_step(opt_cfg, pipe_cfg,
+                                           use_trained_exp=True,
+                                           pair_capacity=p_cap)
+        bg = t.zeros(3, device=self.dev)
+        refs = []
+        for cam in cams:
+            _, o, m = single.step(state0, self.optim.init_adam(
+                state0.params), cam, 1, None, bg)
+            refs.append((o.mu, float(m["loss"])))
+        t.cuda.synchronize()
+
+        def timed(fn, n_steps):
+            """ms per step on this rank's host clock, all ranks in step."""
+            dist.barrier()
+            t.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(n_steps):
+                fn(i)
+            t.cuda.synchronize()
+            dist.barrier()
+            return (time.perf_counter() - t0) * 1e3 / n_steps
+
+        grids = [(1, world, True), (1, world, False), (world, 1, False)]
+        if world % 2 == 0 and world > 2:
+            grids.append((2, world // 2, True))
+        out = {"world": world, "p_cap": p_cap, "grids": {}}
+        sc = {"s": state0, "o": self.optim.init_adam(state0.params)}
+
+        def single_step(i):
+            sc["s"], sc["o"], _ = single.step(sc["s"], sc["o"],
+                                              cams[i % len(cams)], i + 1,
+                                              None, bg)
+        single_ms = [timed(single_step, 2 * len(cams))]
+        for nd, ng, tile in grids:
+            label = f"{nd}x{ng}{'_bands' if tile else ''}"
+            t.cuda.reset_peak_memory_stats()
+            mesh = pmesh.Mesh(nd, ng, device=self.dev)
+            assert mesh.backend == pmesh.backend_for(self.dev)
+            fns = integrate.make_sharded_fns(opt_cfg, pipe_cfg, mesh,
+                                             use_trained_exp=True,
+                                             tile_shard=tile,
+                                             pair_capacity=p_cap)
+            batches = [pstep.stack_cameras([cams[(i + d) % len(cams)]
+                                            for d in range(nd)])
+                       for i in range(len(cams))]
+            s, o = integrate.place_sharded(
+                state0, self.optim.init_adam(state0.params), mesh)
+            s, o, m = fns.step(s, o, batches[0], 1, None, bg)
+            loss_ref = float(np.mean([refs[d][1] for d in range(nd)]))
+            assert abs(float(m["loss"]) - loss_ref) <= 1e-5, \
+                (label, float(m["loss"]), loss_ref)
+            local = s.capacity
+            lo = mesh.gauss_rank * local
+            errs = {}
+            for n in self.interop.PARAM_FIELDS:
+                want = sum(getattr(refs[d][0], n) for d in range(nd)) / nd
+                if n in self.optim.PER_GAUSSIAN:
+                    want = want[lo:lo + local]
+                got = getattr(o.mu, n)
+                diff = (got - want).abs()
+                ok = diff <= GRAD_ATOL * float(want.abs().max()) \
+                    + GRAD_RTOL * want.abs()
+                errs[n] = float(diff.max())
+                assert bool(ok.all()), (label, n, errs[n])
+            # The main path: every count at 0 just before, read just after.
+            t.cuda.synchronize()
+            dist.barrier()
+            k.reset_launch_counts()
+            for i in range(TRAIN_STEPS):
+                s, o, m = self.checked_step(
+                    fns, s, o, batches[i % len(batches)], i + 2, bg, label,
+                    path=TILE_STEP if tile and ng > 1 else STEP)
+            launches = k.launch_counts()
+            chain = {"s": s, "o": o}
+
+            def step(i):
+                chain["s"], chain["o"], _ = fns.step(
+                    chain["s"], chain["o"], batches[i % len(batches)],
+                    TRAIN_STEPS + 2 + i, None, bg)
+            step_ms = timed(step, 2 * len(cams))
+            # Where a step's time goes on this rank (NCCL kernels count
+            # their waits for the other ranks as device time).
+            prof = self.profile(step, list(range(len(cams))))
+            out["grids"][label] = dict(
+                n_data=nd, n_gauss=ng, tile_bands=tile, shard_rows=local,
+                loss_step1=float(m["loss"]), grad_max_abs_err_step1=errs,
+                launches={n: launches[n] for n in KERNELS if launches[n]},
+                step_ms=step_ms, last_step={key: m[key] for key in
+                                            ("loss", "num_pairs",
+                                             "n_active", "skipped")},
+                peak_mem_gib=t.cuda.max_memory_allocated() / 2 ** 30,
+                profile={key: prof[key] for key in (
+                    "traced_wall_ms_per_frame", "device_ms_per_frame",
+                    "device_busy_share", "device_ops_per_frame")},
+                device_top=prof["device_top"][:10])
+            del s, o, chain, fns
+        single_ms.append(timed(single_step, 2 * len(cams)))
+        out["single_step_ms"] = single_ms
+        return out
+
     def phase_cli(self):
         from priordepth_gaussiansplatting_torch.train import checkpoint
         from priordepth_gaussiansplatting_torch.utils import config
@@ -905,7 +1425,24 @@ class Smoke:
         print(json.dumps({"kernels": rows}), flush=True)
 
 
-def main() -> int:
+def multi_rank(rank: int, world: int) -> dict:
+    """One rank of ``--ranks``, on card `rank` (spawn's target)."""
+    import torch
+    smoke = Smoke()
+    smoke.dev = torch.device("cuda", rank)
+    out = smoke.multi_runs(world)
+    out["card"] = torch.cuda.get_device_name(rank)
+    return out
+
+
+def main(argv=None) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--ranks", type=int, default=1,
+        help="with N > 1, run only the multi-rank phase: N processes, one "
+             "per card, in an NCCL group (needs N cards)")
+    args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -915,15 +1452,51 @@ def main() -> int:
     t0 = time.perf_counter()
     build_seconds = build.build(kernels.KERNELS)
     build_wall = time.perf_counter() - t0
+    if args.ranks > 1:
+        return main_multi(args.ranks, build_wall)
     smoke = Smoke()
     smoke.phase_device(build_seconds, build_wall)
     smoke.phase_mid()
     smoke.phase_full()
     smoke.phase_train()
     smoke.phase_train_mid()
+    smoke.phase_bands()
+    smoke.phase_sharded()
     smoke.phase_cli()
     smoke.kernels_line()
     print(smoke.smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main_multi(ranks: int, build_wall: float) -> int:
+    """``--ranks N``: the sharded step over N cards, one rank each."""
+    import torch
+    from priordepth_gaussiansplatting_torch.parallel import mesh as pmesh
+    if torch.cuda.device_count() < ranks:
+        print(f"chip_smoke: --ranks {ranks} needs {ranks} cards, found "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        per_rank = pmesh.spawn(ranks, multi_rank, backend="nccl",
+                               store_dir=tmp, timeout=900)
+        wall = time.perf_counter() - t0
+    emit("multi_rank", ok=True, ranks=ranks, n=FULL_N, width=FULL_W,
+         height=FULL_H, steps=TRAIN_STEPS, build_wall_s=build_wall,
+         spawn_wall_s=wall, nvidia_smi=smi.splitlines(),
+         rank0=per_rank[0],
+         step_ms_by_rank={label: [r["grids"][label]["step_ms"]
+                                  for r in per_rank]
+                          for label in per_rank[0]["grids"]},
+         single_step_ms_by_rank=[r["single_step_ms"] for r in per_rank])
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -63,6 +63,12 @@ class Camera:
       world_view: (4, 4) world->camera; full_proj: (4, 4) proj @ world_view;
       cam_center: (3,); image: (3, H, W) in [0, 1] or None; invdepth,
       depth_mask, alpha_mask: (H, W) or None.
+
+    For a multi-rank batch (``parallel/step.py``): a camera zero-padded
+    onto a larger canvas carries its true pixel size ``pix_wh`` = [w, h]
+    and ``tan_wh`` = [tan_fovx, tan_fovy] as (2,) tensors (width and height
+    are then the canvas's, fovx and fovy 0), and ``exposure_idx``, a 0-dim
+    int32 tensor, overrides ``exposure_id`` for the exposure lookup.
     """
 
     world_view: torch.Tensor
@@ -72,6 +78,9 @@ class Camera:
     invdepth: Optional[torch.Tensor] = None
     depth_mask: Optional[torch.Tensor] = None
     alpha_mask: Optional[torch.Tensor] = None
+    pix_wh: Optional[torch.Tensor] = None
+    tan_wh: Optional[torch.Tensor] = None
+    exposure_idx: Optional[torch.Tensor] = None
     height: int = 0
     width: int = 0
     fovx: float = 0.0

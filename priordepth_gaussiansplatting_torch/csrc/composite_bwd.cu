@@ -37,6 +37,14 @@
 // are needed across blocks (the TPU kernel's read-modify-write of shared
 // floored chunks has no counterpart). A warp whose pixels have all stopped
 // leaves the batch early; the block leaves when all 256 have stopped.
+//
+// K6, the band form (composite_bwd_bands_launch), replaces the same TPU
+// kernel built with _make_composite(num_local_tiles=...) for
+// rasterize_pallas.py::composite_bands: slot b walks global tile tile_ids[b]
+// over its own range [slot_start[b], slot_end[b]). A pad slot (id 0, empty
+// range) writes nothing, and no column outside the band's ranges is
+// written, so a band's table is zero off its own pairs and the bands'
+// tables sum to the whole frame's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,6 +69,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// kSlotRanges: ranges are indexed by slot b (K6) instead of by tile id (K3).
+template <bool kSlotRanges>
 __global__ void __launch_bounds__(kPix) composite_bwd_kernel(
     const float* __restrict__ table, int L, const int* __restrict__ tile_start,
     const int* __restrict__ tile_end, const int* __restrict__ tile_ids,
@@ -83,8 +93,8 @@ __global__ void __launch_bounds__(kPix) composite_bwd_kernel(
   const int tx = t - ty * grid_x;
   const float px = (float)(tx * kTile + (tid % kTile));
   const float py = (float)(ty * kTile + (tid / kTile));
-  const int start = tile_start[t];
-  const int end = tile_end[t];
+  const int start = tile_start[kSlotRanges ? b : t];
+  const int end = tile_end[kSlotRanges ? b : t];
 
   const size_t o = (size_t)b * kPix + tid;
   const size_t plane = (size_t)n_tiles * kPix;
@@ -185,25 +195,49 @@ __global__ void __launch_bounds__(kPix) composite_bwd_kernel(
   n_eval[o] = evaluated;
 }
 
-}  // namespace
-
-extern "C" int composite_bwd_launch(
-    const void* table, int L, const void* tile_start, const void* tile_end,
-    const void* tile_ids, int n_tiles, int grid_x, const void* dC,
-    const void* dD, const void* dT, const void* C, const void* D,
-    const void* T_fin, void* d_table, void* n_eval, void* stream) {
+template <bool kSlotRanges>
+int launch(const void* table, int L, const void* tile_start,
+           const void* tile_end, const void* tile_ids, int n_tiles, int grid_x,
+           const void* dC, const void* dD, const void* dT, const void* C,
+           const void* D, const void* T_fin, void* d_table, void* n_eval,
+           void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
+      composite_bwd_kernel<kSlotRanges>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   if (n_tiles > 0) {
-    composite_bwd_kernel<<<n_tiles, kPix, kSmemBytes, (cudaStream_t)stream>>>(
+    composite_bwd_kernel<kSlotRanges>
+        <<<n_tiles, kPix, kSmemBytes, (cudaStream_t)stream>>>(
         (const float*)table, L, (const int*)tile_start, (const int*)tile_end,
         (const int*)tile_ids, n_tiles, grid_x, (const float*)dC,
         (const float*)dD, (const float*)dT, (const float*)C, (const float*)D,
         (const float*)T_fin, (float*)d_table, (int*)n_eval);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K3: ranges indexed by tile id; tile_ids may be null (all tiles).
+extern "C" int composite_bwd_launch(
+    const void* table, int L, const void* tile_start, const void* tile_end,
+    const void* tile_ids, int n_tiles, int grid_x, const void* dC,
+    const void* dD, const void* dT, const void* C, const void* D,
+    const void* T_fin, void* d_table, void* n_eval, void* stream) {
+  return launch<false>(table, L, tile_start, tile_end, tile_ids, n_tiles,
+                       grid_x, dC, dD, dT, C, D, T_fin, d_table, n_eval,
+                       stream);
+}
+
+// K6: one range per slot; tile_ids holds the slots' global tile ids.
+extern "C" int composite_bwd_bands_launch(
+    const void* table, int L, const void* slot_start, const void* slot_end,
+    const void* tile_ids, int n_slots, int grid_x, const void* dC,
+    const void* dD, const void* dT, const void* C, const void* D,
+    const void* T_fin, void* d_table, void* n_eval, void* stream) {
+  return launch<true>(table, L, slot_start, slot_end, tile_ids, n_slots,
+                      grid_x, dC, dD, dT, C, D, T_fin, d_table, n_eval,
+                      stream);
 }
 
 extern "C" const char* composite_bwd_error(int code) {

@@ -14,6 +14,13 @@
 // pixel index = 16 * row + column within the tile. The background is added
 // by the caller.
 //
+// K6, the band form (composite_fwd_bands_launch), replaces the same TPU
+// kernel built with _make_composite(num_local_tiles=...) and called through
+// rasterize_pallas.py::composite_bands: slot b composites global tile
+// tile_ids[b] over its own range [slot_start[b], slot_end[b]), so a pad slot
+// (id 0, empty range) composites nothing: colour and inverse depth 0, T 1,
+// no pair evaluated. The arithmetic is K2's, in the same kernel.
+//
 // Bound on the H100: operations. Each (pixel, pair) evaluation costs about
 // 20 f32 operations and one expf, while the table is read once per tile
 // (10 words per pair, shared by 256 pixels). Design: one block per tile and
@@ -39,6 +46,8 @@ constexpr float kAlphaMax = 0.99f;
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kTEps = 1e-4f;
 
+// kSlotRanges: ranges are indexed by slot b (K6) instead of by tile id (K2).
+template <bool kSlotRanges>
 __global__ void __launch_bounds__(kPix) composite_fwd_kernel(
     const float* __restrict__ table, int L, const int* __restrict__ tile_start,
     const int* __restrict__ tile_end, const int* __restrict__ tile_ids,
@@ -53,8 +62,8 @@ __global__ void __launch_bounds__(kPix) composite_fwd_kernel(
   const int tx = t - ty * grid_x;
   const float px = (float)(tx * kTile + (tid % kTile));
   const float py = (float)(ty * kTile + (tid / kTile));
-  const int start = tile_start[t];
-  const int end = tile_end[t];
+  const int start = tile_start[kSlotRanges ? b : t];
+  const int end = tile_end[kSlotRanges ? b : t];
 
   float T = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, d = 0.0f;
   int evaluated = 0;
@@ -101,21 +110,44 @@ __global__ void __launch_bounds__(kPix) composite_fwd_kernel(
   n_eval[o] = evaluated;
 }
 
+template <bool kSlotRanges>
+int launch(const void* table, int L, const void* tile_start,
+           const void* tile_end, const void* tile_ids, int n_tiles, int grid_x,
+           void* color, void* invd, void* final_t, void* n_eval,
+           void* stream) {
+  if (n_tiles > 0) {
+    composite_fwd_kernel<kSlotRanges>
+        <<<n_tiles, kPix, 0, (cudaStream_t)stream>>>(
+        (const float*)table, L, (const int*)tile_start, (const int*)tile_end,
+        (const int*)tile_ids, n_tiles, grid_x, (float*)color, (float*)invd,
+        (float*)final_t, (int*)n_eval);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// K2: ranges indexed by tile id; tile_ids may be null (all tiles).
 extern "C" int composite_fwd_launch(const void* table, int L,
                                     const void* tile_start,
                                     const void* tile_end, const void* tile_ids,
                                     int n_tiles, int grid_x, void* color,
                                     void* invd, void* final_t, void* n_eval,
                                     void* stream) {
-  if (n_tiles > 0) {
-    composite_fwd_kernel<<<n_tiles, kPix, 0, (cudaStream_t)stream>>>(
-        (const float*)table, L, (const int*)tile_start, (const int*)tile_end,
-        (const int*)tile_ids, n_tiles, grid_x, (float*)color, (float*)invd,
-        (float*)final_t, (int*)n_eval);
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(table, L, tile_start, tile_end, tile_ids, n_tiles,
+                       grid_x, color, invd, final_t, n_eval, stream);
+}
+
+// K6: one range per slot; tile_ids holds the slots' global tile ids.
+extern "C" int composite_fwd_bands_launch(const void* table, int L,
+                                          const void* slot_start,
+                                          const void* slot_end,
+                                          const void* tile_ids, int n_slots,
+                                          int grid_x, void* color, void* invd,
+                                          void* final_t, void* n_eval,
+                                          void* stream) {
+  return launch<true>(table, L, slot_start, slot_end, tile_ids, n_slots,
+                      grid_x, color, invd, final_t, n_eval, stream);
 }
 
 extern "C" const char* composite_fwd_error(int code) {

@@ -1,7 +1,11 @@
 """Carry values from the JAX package into the port as numpy arrays, so both
 compute the same thing on the same inputs, and the port's state back out to
 numpy for comparison. Takes numpy (or anything ``np.asarray`` accepts) and
-imports nothing of the JAX package."""
+imports nothing of the JAX package.
+
+For the multi-rank step: :func:`shard_numpy` cuts gauss rank g's shard out
+of the global state (the rows the JAX package places on that device), and
+:func:`unshard_numpy` puts the shards' arrays back together."""
 
 from __future__ import annotations
 
@@ -13,9 +17,11 @@ from .device import resolve_device
 from .models.gaussians import PARAM_NAMES as PARAM_FIELDS
 from .models.gaussians import GaussianParams, GaussianState
 from .ops.projection import ProjectedGaussians
-from .train.optim import AdamState
+from .train.optim import PER_GAUSSIAN, AdamState
 
 STAT_FIELDS = ("max_radii2d", "xyz_gradient_accum", "denom")
+# Keys of the per-Gaussian arrays (first axis = capacity) in the dicts here.
+ROW_KEYS = PER_GAUSSIAN + ("active",) + STAT_FIELDS
 
 
 def _f32(x, device):
@@ -72,7 +78,8 @@ def adam_state_to_numpy(opt: AdamState) -> dict:
 def camera_from_numpy(world_view, full_proj, cam_center, width: int,
                       height: int, fovx: float, fovy: float, image=None,
                       exposure_id: int = -1, invdepth=None, depth_mask=None,
-                      alpha_mask=None, device=None) -> Camera:
+                      alpha_mask=None, pix_wh=None, tan_wh=None,
+                      exposure_idx=None, device=None) -> Camera:
     """A Camera from the JAX camera's matrices and metadata."""
     device = resolve_device(device)
 
@@ -82,9 +89,58 @@ def camera_from_numpy(world_view, full_proj, cam_center, width: int,
         world_view=_f32(world_view, device), full_proj=_f32(full_proj, device),
         cam_center=_f32(cam_center, device), image=opt(image),
         invdepth=opt(invdepth), depth_mask=opt(depth_mask),
-        alpha_mask=opt(alpha_mask),
+        alpha_mask=opt(alpha_mask), pix_wh=opt(pix_wh), tan_wh=opt(tan_wh),
+        exposure_idx=None if exposure_idx is None else torch.tensor(
+            int(exposure_idx), dtype=torch.int32, device=device),
         height=int(height), width=int(width), fovx=float(fovx),
         fovy=float(fovy), exposure_id=int(exposure_id))
+
+
+def camera_batch_from_numpy(width: int, height: int, fovx: float,
+                            fovy: float, exposure_id: int = -1, device=None,
+                            **arrays) -> list:
+    """A camera batch (one Camera per data rank) from the JAX package's
+    stacked batch: each of `arrays` (the array fields of
+    :func:`camera_from_numpy`, None where absent) has a leading batch axis;
+    the static fields are shared."""
+    arrays = {k: v for k, v in arrays.items() if v is not None}
+    n = len(np.asarray(arrays["world_view"]))
+    return [camera_from_numpy(
+        width=width, height=height, fovx=fovx, fovy=fovy,
+        exposure_id=exposure_id, device=device,
+        **{k: np.asarray(v)[i] for k, v in arrays.items()})
+        for i in range(n)]
+
+
+def shard_numpy(arrays: dict, n_gauss: int, gauss_rank: int) -> dict:
+    """Gauss rank `gauss_rank`'s shard of a dict of global arrays: rows
+    [g C/n, (g+1) C/n) of the per-Gaussian entries (``ROW_KEYS``), the rest
+    as they are. Nested dicts (Adam's ``mu``/``nu``) are cut alike."""
+    out = {}
+    for k, v in arrays.items():
+        if isinstance(v, dict):
+            out[k] = shard_numpy(v, n_gauss, gauss_rank)
+        elif k in ROW_KEYS:
+            v = np.asarray(v)
+            local = v.shape[0] // n_gauss
+            out[k] = v[gauss_rank * local:(gauss_rank + 1) * local]
+        else:
+            out[k] = v
+    return out
+
+
+def unshard_numpy(shards: list) -> dict:
+    """The inverse of :func:`shard_numpy`: the gauss ranks' dicts, in rank
+    order, with the per-Gaussian entries concatenated."""
+    out = {}
+    for k, v in shards[0].items():
+        if isinstance(v, dict):
+            out[k] = unshard_numpy([s[k] for s in shards])
+        elif k in ROW_KEYS:
+            out[k] = np.concatenate([np.asarray(s[k]) for s in shards])
+        else:
+            out[k] = v
+    return out
 
 
 def projected_from_numpy(mean2d, conic, opacity, rgb, depth, invdepth,

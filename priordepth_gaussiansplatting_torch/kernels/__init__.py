@@ -4,7 +4,9 @@ Each wrapper in ``ops/`` calls :func:`launch` for a CUDA tensor; that is the
 only place a kernel is launched and the only place its count grows. A launch
 is counted under its label: the kernel's name, or another name where one
 kernel serves two places on the path (``gather_rows`` builds the forward's
-pair table, ``gather_rows_bwd`` is the backward's sort-back).
+pair table, ``gather_rows_bwd`` is the backward's sort-back), or the name of
+a source's second entry point (``composite_fwd_bands`` and
+``composite_bwd_bands``, K6: the compositor over one band of the tile grid).
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from . import build
 KERNELS = ("expand_pairs", "gather_rows", "composite_fwd", "composite_bwd",
            "segment_reduce")
 # What the launch counts are kept under.
-LABELS = KERNELS + ("gather_rows_bwd",)
+LABELS = KERNELS + ("gather_rows_bwd", "composite_fwd_bands",
+                   "composite_bwd_bands")
 
 _launches = dict.fromkeys(LABELS, 0)
 
@@ -37,21 +40,24 @@ def reset_launch_counts() -> None:
         _launches[name] = 0
 
 
-def launch(name: str, argtypes, *args, label: str | None = None) -> None:
-    """Launch kernel `name` on the current stream and count it under
-    `label` (default: `name`).
+def launch(name: str, argtypes, *args, label: str | None = None,
+           entry: str | None = None) -> None:
+    """Launch kernel `name` through its C entry point ``<entry>_launch``
+    (default: `name`) on the current stream and count it under `label`
+    (default: the entry).
 
     `args` are the C entry point's arguments without the trailing stream:
     tensors are passed as their data pointers. Raises if the launch was
     refused (the C function returns cudaGetLastError())."""
-    lib = build.load(name, list(argtypes) + [ptr])
+    entry = entry or name
+    fn = build.entry(name, f"{entry}_launch", list(argtypes) + [ptr])
     stream = torch.cuda.current_stream().cuda_stream
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    rc = getattr(lib, f"{name}_launch")(*cargs, stream)
+    rc = fn(*cargs, stream)
     if rc != 0:
-        msg = getattr(lib, f"{name}_error")(rc).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed ({rc}): {msg}")
-    _launches[label or name] += 1
+        msg = getattr(build.load(name), f"{name}_error")(rc).decode()
+        raise RuntimeError(f"{entry}: CUDA launch failed ({rc}): {msg}")
+    _launches[label or entry] += 1
 
 
 def check_cuda(name: str, **tensors) -> None:

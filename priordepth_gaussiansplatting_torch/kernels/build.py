@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exports a plain C entry point ``<name>_launch``
 (pointers and the stream as ``void*``, sizes as ``int``) that returns
-``cudaGetLastError()``, and ``<name>_error`` for the message. No PyTorch
+``cudaGetLastError()``, and ``<name>_error`` for the message; a source may
+export a second form of its kernel under another ``<entry>_launch``. No PyTorch
 header is included, so one source compiles in seconds. Libraries go to
 ``build/kernels/`` at the root of the checkout, named by a digest of the
 source and the flags, and are built at first use. :func:`build` starts one
@@ -85,18 +86,24 @@ def ptxas_report(name: str) -> str:
     return path.read_text() if path.exists() else ""
 
 
-def load(name: str, argtypes) -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built first if need be, with
-    ``<name>_launch`` declared to take `argtypes` and return an int."""
+    ``<name>_error`` declared."""
     lib = _loaded.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        launch = getattr(lib, f"{name}_launch")
-        launch.argtypes = list(argtypes)
-        launch.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         _loaded[name] = lib
     return lib
+
+
+def entry(name: str, function: str, argtypes):
+    """C function `function` of kernel `name`'s library, declared to take
+    `argtypes` and return an int."""
+    fn = getattr(load(name), function)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn

@@ -131,17 +131,26 @@ def project_gaussians(
     antialiasing: bool = False,
     valid_mask: Optional[torch.Tensor] = None,
     colors_precomp: Optional[torch.Tensor] = None,
+    map_width=None,
+    map_height=None,
 ) -> ProjectedGaussians:
-    """Full preprocess. Culled and padded rows get radius 0 and opacity 0."""
-    focal_x = width / (2.0 * tan_fovx)
-    focal_y = height / (2.0 * tan_fovy)
+    """Full preprocess. Culled and padded rows get radius 0 and opacity 0.
+
+    `map_width`/`map_height` (numbers or 0-dim tensors) replace `width`/
+    `height` in the pixel mapping and the focal lengths, for a camera
+    zero-padded onto a larger canvas; `tan_fovx`/`tan_fovy` may then be
+    0-dim tensors too."""
+    mw = width if map_width is None else map_width
+    mh = height if map_height is None else map_height
+    focal_x = mw / (2.0 * tan_fovx)
+    focal_y = mh / (2.0 * tan_fovy)
 
     hom = means3d @ full_proj[:3, :3].T + full_proj[:3, 3]
     w = means3d @ full_proj[3, :3] + full_proj[3, 3]
     inv_w = 1.0 / (w + 1e-7)
     ndc = hom * inv_w[:, None]
-    mean2d = torch.stack([((ndc[:, 0] + 1.0) * width - 1.0) * 0.5,
-                          ((ndc[:, 1] + 1.0) * height - 1.0) * 0.5], -1)
+    mean2d = torch.stack([((ndc[:, 0] + 1.0) * mw - 1.0) * 0.5,
+                          ((ndc[:, 1] + 1.0) * mh - 1.0) * 0.5], -1)
 
     cov2d, t = compute_cov2d(means3d, cov3d, viewmatrix, focal_x, focal_y,
                              tan_fovx, tan_fovy)

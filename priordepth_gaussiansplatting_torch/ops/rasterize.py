@@ -2,6 +2,10 @@
 differentiable through the compositor's backward (K3) and the binning's
 (K5b, K4); counterpart of the JAX package's
 ``ops/rasterize_pallas.py::rasterize``, ``_fwd_kernel`` and ``_bwd_kernel``.
+K6 (:func:`composite_bands`, the JAX package's ``composite_bands``) is the
+same compositor over one band of the tile grid, for the tile-sharded
+multi-rank step: each slot has its own pair range, so pad slots composite
+nothing and get no gradient.
 
 Compositing semantics are the oracle's (``ops/reference.py``): alpha =
 min(0.99, op e^power), skipped if power > 0 or alpha < 1/255; the walk stops
@@ -55,25 +59,61 @@ def _composite_tile_plain(pairs, tile: int, grid_x: int):
     return color, invd, final_t, n_eval.to(torch.int32)
 
 
-def composite_fwd_plain(table, tile_start, tile_end, grid_x: int,
-                        tiles=None):
-    """Plain PyTorch version of K2 (see ``csrc/composite_fwd.cu``): a loop
-    over tiles, vectorised over pixels and pairs within a tile."""
+def composite_fwd_bands_plain(table, band_start, band_end, grid_x: int,
+                              tile_ids):
+    """Plain PyTorch version of K6's forward (and of K2, which it serves):
+    slot b composites tile ``tile_ids[b]`` over ``[band_start[b],
+    band_end[b])``; a loop over slots, vectorised over pixels and pairs
+    within a tile."""
     dev = table.device
-    if tiles is None:
-        tiles = torch.arange(tile_start.shape[0], device=dev)
-    n = tiles.shape[0]
+    n = tile_ids.shape[0]
     color = torch.zeros(3, n, PIX, device=dev)
     invd = torch.zeros(n, PIX, device=dev)
     final_t = torch.ones(n, PIX, device=dev)
     n_eval = torch.zeros(n, PIX, dtype=torch.int32, device=dev)
-    t_list = tiles.tolist()
-    starts = tile_start[tiles].tolist()
-    ends = tile_end[tiles].tolist()
-    for b, (t, s, e) in enumerate(zip(t_list, starts, ends)):
+    for b, (t, s, e) in enumerate(zip(tile_ids.tolist(), band_start.tolist(),
+                                      band_end.tolist())):
         if e > s:
             color[:, b], invd[b], final_t[b], n_eval[b] = \
                 _composite_tile_plain(table[:, s:e], t, grid_x)
+    return color, invd, final_t, n_eval
+
+
+def _all_tiles(tile_start, tiles):
+    if tiles is None:
+        return torch.arange(tile_start.shape[0], dtype=torch.int32,
+                            device=tile_start.device)
+    return tiles
+
+
+def composite_fwd_plain(table, tile_start, tile_end, grid_x: int,
+                        tiles=None):
+    """Plain PyTorch version of K2 (see ``csrc/composite_fwd.cu``)."""
+    tiles = _all_tiles(tile_start, tiles)
+    return composite_fwd_bands_plain(table, tile_start[tiles],
+                                     tile_end[tiles], grid_x, tiles)
+
+
+def _launch_fwd(entry: str, table, starts, ends, grid_x: int, tiles, n: int):
+    """Check the arguments of K2 or K6 and launch it: colour (3, n, PIX),
+    inverse depth, final T (n, PIX) f32 and pairs evaluated (n, PIX)."""
+    args = dict(table=table, starts=starts, ends=ends)
+    if tiles is not None:
+        args["tiles"] = tiles
+    kernels.check_cuda(entry, **args)
+    if table.dtype != torch.float32 or table.shape[0] != binning.ATTR_ROWS:
+        raise ValueError(f"{entry}: table must be f32 (ATTR_ROWS, L)")
+    if any(t.dtype != torch.int32 for k, t in args.items() if k != "table"):
+        raise TypeError(f"{entry}: tile ranges and ids must be int32")
+    dev = table.device
+    color = torch.empty(3, n, PIX, device=dev)
+    invd = torch.empty(n, PIX, device=dev)
+    final_t = torch.empty(n, PIX, device=dev)
+    n_eval = torch.empty(n, PIX, dtype=torch.int32, device=dev)
+    p, i = kernels.ptr, kernels.i32
+    kernels.launch("composite_fwd", [p, i, p, p, p, i, i, p, p, p, p],
+                   table, table.shape[1], starts, ends, tiles, n, grid_x,
+                   color, invd, final_t, n_eval, entry=entry)
     return color, invd, final_t, n_eval
 
 
@@ -85,25 +125,23 @@ def composite_fwd(table, tile_start, tile_end, grid_x: int, tiles=None):
     int32, with pixel index 16 * row + column inside the tile."""
     if table.device.type == "cpu":
         return composite_fwd_plain(table, tile_start, tile_end, grid_x, tiles)
-    args = dict(table=table, tile_start=tile_start, tile_end=tile_end)
-    if tiles is not None:
-        args["tiles"] = tiles
-    kernels.check_cuda("composite_fwd", **args)
-    if table.dtype != torch.float32 or table.shape[0] != binning.ATTR_ROWS:
-        raise ValueError("composite_fwd: table must be f32 (ATTR_ROWS, L)")
-    if any(t.dtype != torch.int32 for k, t in args.items() if k != "table"):
-        raise TypeError("composite_fwd: tile ranges and ids must be int32")
     n = tile_start.shape[0] if tiles is None else tiles.shape[0]
-    dev = table.device
-    color = torch.empty(3, n, PIX, device=dev)
-    invd = torch.empty(n, PIX, device=dev)
-    final_t = torch.empty(n, PIX, device=dev)
-    n_eval = torch.empty(n, PIX, dtype=torch.int32, device=dev)
-    p, i = kernels.ptr, kernels.i32
-    kernels.launch("composite_fwd", [p, i, p, p, p, i, i, p, p, p, p],
-                   table, table.shape[1], tile_start, tile_end, tiles, n,
-                   grid_x, color, invd, final_t, n_eval)
-    return color, invd, final_t, n_eval
+    return _launch_fwd("composite_fwd", table, tile_start, tile_end, grid_x,
+                       tiles, n)
+
+
+def composite_fwd_bands(table, band_start, band_end, grid_x: int, tile_ids):
+    """K6's forward: K2 over one band's slots, slot b being global tile
+    ``tile_ids[b]`` with its own range ``[band_start[b], band_end[b])``
+    (empty for a pad slot). Outputs as K2's, one row per slot."""
+    if table.device.type == "cpu":
+        return composite_fwd_bands_plain(table, band_start, band_end, grid_x,
+                                         tile_ids)
+    n = tile_ids.shape[0]
+    if band_start.shape != (n,) or band_end.shape != (n,):
+        raise ValueError(f"composite_fwd_bands: ranges must be ({n},)")
+    return _launch_fwd("composite_fwd_bands", table, band_start, band_end,
+                       grid_x, tile_ids, n)
 
 
 def _composite_tile_bwd_plain(pairs, tile: int, grid_x: int, d_color, d_invd,
@@ -153,23 +191,63 @@ def _composite_tile_bwd_plain(pairs, tile: int, grid_x: int, d_color, d_invd,
     return torch.stack([r.sum(0) for r in rows]), n_eval.to(torch.int32)
 
 
-def composite_bwd_plain(table, tile_start, tile_end, grid_x: int, d_color,
-                        d_invd, d_final_t, color, invd, final_t, tiles=None):
-    """Plain PyTorch version of K3 (see ``csrc/composite_bwd.cu``): a loop
-    over tiles, vectorised over pixels and pairs within a tile."""
-    dev = table.device
-    if tiles is None:
-        tiles = torch.arange(tile_start.shape[0], device=dev)
+def composite_bwd_bands_plain(table, band_start, band_end, grid_x: int,
+                              tile_ids, d_color, d_invd, d_final_t, color,
+                              invd, final_t):
+    """Plain PyTorch version of K6's backward (and of K3, which it serves):
+    a loop over slots, vectorised over pixels and pairs within a tile;
+    columns outside the slots' ranges stay zero."""
     d_table = torch.zeros_like(table)
-    n_eval = torch.zeros(tiles.shape[0], PIX, dtype=torch.int32, device=dev)
-    t_list = tiles.tolist()
-    starts = tile_start[tiles].tolist()
-    ends = tile_end[tiles].tolist()
-    for i, (t, s, e) in enumerate(zip(t_list, starts, ends)):
+    n_eval = torch.zeros(tile_ids.shape[0], PIX, dtype=torch.int32,
+                         device=table.device)
+    for i, (t, s, e) in enumerate(zip(tile_ids.tolist(), band_start.tolist(),
+                                      band_end.tolist())):
         if e > s:
             d_table[:, s:e], n_eval[i] = _composite_tile_bwd_plain(
                 table[:, s:e], t, grid_x, d_color[:, i], d_invd[i],
                 d_final_t[i], color[:, i], invd[i], final_t[i])
+    return d_table, n_eval
+
+
+def composite_bwd_plain(table, tile_start, tile_end, grid_x: int, d_color,
+                        d_invd, d_final_t, color, invd, final_t, tiles=None):
+    """Plain PyTorch version of K3 (see ``csrc/composite_bwd.cu``)."""
+    tiles = _all_tiles(tile_start, tiles)
+    return composite_bwd_bands_plain(table, tile_start[tiles],
+                                     tile_end[tiles], grid_x, tiles, d_color,
+                                     d_invd, d_final_t, color, invd, final_t)
+
+
+def _launch_bwd(entry: str, table, starts, ends, grid_x: int, tiles, n: int,
+                d_color, d_invd, d_final_t, color, invd, final_t):
+    """Check the arguments of K3 or K6's backward and launch it: the
+    (ATTR_ROWS, L) gradient table, zero outside the evaluated pairs, and
+    the pairs evaluated (n, PIX) int32."""
+    pixel = dict(d_invd=d_invd, d_final_t=d_final_t, invd=invd,
+                 final_t=final_t)
+    args = dict(table=table, starts=starts, ends=ends, d_color=d_color,
+                color=color, **pixel)
+    if tiles is not None:
+        args["tiles"] = tiles
+    kernels.check_cuda(entry, **args)
+    if table.dtype != torch.float32 or table.shape[0] != binning.ATTR_ROWS:
+        raise ValueError(f"{entry}: table must be f32 (ATTR_ROWS, L)")
+    if any(t.dtype != torch.int32 for k, t in args.items()
+           if k in ("starts", "ends", "tiles")):
+        raise TypeError(f"{entry}: tile ranges and ids must be int32")
+    for k, t in dict(d_color=d_color, color=color).items():
+        if t.dtype != torch.float32 or t.shape != (3, n, PIX):
+            raise ValueError(f"{entry}: {k} must be f32 (3, {n}, {PIX})")
+    for k, t in pixel.items():
+        if t.dtype != torch.float32 or t.shape != (n, PIX):
+            raise ValueError(f"{entry}: {k} must be f32 ({n}, {PIX})")
+    d_table = torch.zeros_like(table)
+    n_eval = torch.empty(n, PIX, dtype=torch.int32, device=table.device)
+    p, i = kernels.ptr, kernels.i32
+    kernels.launch("composite_bwd", [p, i, p, p, p, i, i] + [p] * 8,
+                   table, table.shape[1], starts, ends, tiles, n, grid_x,
+                   d_color, d_invd, d_final_t, color, invd, final_t, d_table,
+                   n_eval, entry=entry)
     return d_table, n_eval
 
 
@@ -185,64 +263,94 @@ def composite_bwd(table, tile_start, tile_end, grid_x: int, d_color, d_invd,
                                    d_color, d_invd, d_final_t, color, invd,
                                    final_t, tiles)
     n = tile_start.shape[0] if tiles is None else tiles.shape[0]
-    pixel = dict(d_invd=d_invd, d_final_t=d_final_t, invd=invd,
-                 final_t=final_t)
-    args = dict(table=table, tile_start=tile_start, tile_end=tile_end,
-                d_color=d_color, color=color, **pixel)
-    if tiles is not None:
-        args["tiles"] = tiles
-    kernels.check_cuda("composite_bwd", **args)
-    if table.dtype != torch.float32 or table.shape[0] != binning.ATTR_ROWS:
-        raise ValueError("composite_bwd: table must be f32 (ATTR_ROWS, L)")
-    if any(t.dtype != torch.int32 for k, t in args.items()
-           if k in ("tile_start", "tile_end", "tiles")):
-        raise TypeError("composite_bwd: tile ranges and ids must be int32")
-    for k, t in dict(d_color=d_color, color=color).items():
-        if t.dtype != torch.float32 or t.shape != (3, n, PIX):
-            raise ValueError(f"composite_bwd: {k} must be f32 (3, {n}, {PIX})")
-    for k, t in pixel.items():
-        if t.dtype != torch.float32 or t.shape != (n, PIX):
-            raise ValueError(f"composite_bwd: {k} must be f32 ({n}, {PIX})")
-    d_table = torch.zeros_like(table)
-    n_eval = torch.empty(n, PIX, dtype=torch.int32, device=table.device)
-    p, i = kernels.ptr, kernels.i32
-    kernels.launch("composite_bwd", [p, i, p, p, p, i, i] + [p] * 8,
-                   table, table.shape[1], tile_start, tile_end, tiles, n,
-                   grid_x, d_color, d_invd, d_final_t, color, invd, final_t,
-                   d_table, n_eval)
-    return d_table, n_eval
+    return _launch_bwd("composite_bwd", table, tile_start, tile_end, grid_x,
+                       tiles, n, d_color, d_invd, d_final_t, color, invd,
+                       final_t)
+
+
+def composite_bwd_bands(table, band_start, band_end, grid_x: int, tile_ids,
+                        d_color, d_invd, d_final_t, color, invd, final_t):
+    """K6's backward: K3 over one band's slots (see
+    :func:`composite_fwd_bands`). The gradient table is zero in every column
+    outside the band's ranges, so the bands' tables sum to the frame's."""
+    if table.device.type == "cpu":
+        return composite_bwd_bands_plain(table, band_start, band_end, grid_x,
+                                         tile_ids, d_color, d_invd, d_final_t,
+                                         color, invd, final_t)
+    n = tile_ids.shape[0]
+    if band_start.shape != (n,) or band_end.shape != (n,):
+        raise ValueError(f"composite_bwd_bands: ranges must be ({n},)")
+    return _launch_bwd("composite_bwd_bands", table, band_start, band_end,
+                       grid_x, tile_ids, n, d_color, d_invd, d_final_t, color,
+                       invd, final_t)
 
 
 class _Composite(torch.autograd.Function):
-    """K2 forward, K3 backward; the custom VJP of the JAX package's
-    ``_make_composite``. Saves the table, the tile ranges and K2's colour,
-    inverse depth and final T; the pair counts are not differentiable."""
+    """K2 forward and K3 backward, or with `bands` K6's two; the custom VJP
+    of the JAX package's ``_make_composite``. Saves the table, the ranges
+    and the forward's colour, inverse depth and final T; the pair counts
+    are not differentiable."""
 
     @staticmethod
-    def forward(ctx, table, tile_start, tile_end, grid_x, tiles):
-        color, invd, final_t, n_eval = composite_fwd(table, tile_start,
-                                                     tile_end, grid_x, tiles)
+    def forward(ctx, table, starts, ends, grid_x, tiles, bands):
+        fwd = composite_fwd_bands if bands else composite_fwd
+        color, invd, final_t, n_eval = fwd(table, starts, ends, grid_x, tiles)
         extra = () if tiles is None else (tiles,)
-        ctx.save_for_backward(table, tile_start, tile_end, color, invd,
-                              final_t, *extra)
-        ctx.grid_x = grid_x
+        ctx.save_for_backward(table, starts, ends, color, invd, final_t,
+                              *extra)
+        ctx.grid_x, ctx.bands = grid_x, bands
         ctx.mark_non_differentiable(n_eval)
         return color, invd, final_t, n_eval
 
     @staticmethod
     def backward(ctx, d_color, d_invd, d_final_t, _):
-        table, ts, te, color, invd, final_t, *extra = ctx.saved_tensors
-        d_table, _ = composite_bwd(
-            table, ts, te, ctx.grid_x, d_color.contiguous(),
-            d_invd.contiguous(), d_final_t.contiguous(), color, invd,
-            final_t, tiles=extra[0] if extra else None)
-        return d_table, None, None, None, None
+        table, starts, ends, color, invd, final_t, *extra = ctx.saved_tensors
+        tiles = extra[0] if extra else None
+        cts = (d_color.contiguous(), d_invd.contiguous(),
+               d_final_t.contiguous(), color, invd, final_t)
+        if ctx.bands:
+            d_table, _ = composite_bwd_bands(table, starts, ends, ctx.grid_x,
+                                             tiles, *cts)
+        else:
+            d_table, _ = composite_bwd(table, starts, ends, ctx.grid_x, *cts,
+                                       tiles=tiles)
+        return d_table, None, None, None, None, None
 
 
 def composite(table, tile_start, tile_end, grid_x: int, tiles=None):
     """Differentiable :func:`composite_fwd` (gradient with respect to the
     table, by K3)."""
-    return _Composite.apply(table, tile_start, tile_end, grid_x, tiles)
+    return _Composite.apply(table, tile_start, tile_end, grid_x, tiles, False)
+
+
+def band_slots(tile_start, tile_end, n_bands: int, band: int):
+    """Band `band` of `n_bands` over the tile grid, cut as the JAX
+    package's ``parallel/step.py::_rasterize_tile_sharded`` cuts it:
+    ceil(num_tiles / n_bands) slots of consecutive global tile ids with
+    their pair ranges; the pad slots past the last tile hold tile 0 with the
+    empty range [0, 0). Returns (tile_ids, band_start, band_end), int32."""
+    nt = tile_start.shape[0]
+    size = -(-nt // n_bands)
+    ids = torch.arange(band * size, (band + 1) * size, dtype=torch.int32,
+                       device=tile_start.device)
+    real = ids < nt
+    ids = torch.where(real, ids, torch.zeros_like(ids))
+    zero = torch.zeros_like(ids)
+    return (ids, torch.where(real, tile_start[ids], zero),
+            torch.where(real, tile_end[ids], zero))
+
+
+def composite_bands(table, tile_ids, band_start, band_end, width: int,
+                    height: int):
+    """K6: the differentiable compositor over one band (see
+    :func:`band_slots`). Returns the raw tiles colour (3, n, PIX), inverse
+    depth and final T (1, n, PIX); gather the bands along dim 1 and
+    assemble with :func:`tiles_to_image`. The table's gradient is zero
+    outside the band's pairs."""
+    grid_x, _ = binning.grid_shape(width, height)
+    color, invd, final_t, _ = _Composite.apply(table, band_start, band_end,
+                                               grid_x, tile_ids, True)
+    return color, invd[None], final_t[None]
 
 
 def tiles_to_image(tiles: torch.Tensor, width: int, height: int):

@@ -5,7 +5,7 @@ visibility, final_T, overflow, num_pairs}. ``screen_offset`` (an (N, 2)
 tensor added to the projected 2D means) is kept for the training path,
 where its gradient is the densification statistic. Exposure compensation:
 img' = E[:3, :3] img + E[:3, 3] when ``use_trained_exp`` and the camera has
-an exposure id.
+an exposure index (``exposure_idx``, which wins) or id.
 """
 
 from __future__ import annotations
@@ -64,8 +64,11 @@ def render(
                                           camera.height)
 
     image = out["render"]
-    if use_trained_exp and camera.exposure_id >= 0:
-        exposure = state.get_exposure(camera.exposure_id)
+    if use_trained_exp and (camera.exposure_idx is not None
+                            or camera.exposure_id >= 0):
+        exposure = state.get_exposure(
+            camera.exposure_id if camera.exposure_idx is None
+            else camera.exposure_idx)
         image = (torch.einsum("ij,jhw->ihw", exposure[:3, :3], image)
                  + exposure[:3, 3][:, None, None])
     if clamp:

@@ -84,6 +84,11 @@ def _create_from_points():
                                  torch.rand(8, 3).numpy(), num_images=1)
 
 
+def _initialize_multihost(tmp_path):
+    from priordepth_gaussiansplatting_torch.parallel import mesh
+    mesh.initialize_multihost(f"file://{tmp_path}/store", 1, 0)
+
+
 def _adam_state():
     from priordepth_gaussiansplatting_torch import interop
     zeros = {k: torch.zeros(2).numpy() for k in interop.PARAM_FIELDS}
@@ -93,7 +98,8 @@ def _adam_state():
 @pytest.mark.parametrize("entry", ["resolve_device", "look_at_camera",
                                    "load_model_snapshot", "render_cli",
                                    "interop", "create_from_points",
-                                   "adam_state_from_numpy"])
+                                   "adam_state_from_numpy",
+                                   "initialize_multihost"])
 def test_entry_points_need_the_card_or_cpu(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -105,6 +111,7 @@ def test_entry_points_need_the_card_or_cpu(entry, tmp_path):
         "interop": _interop,
         "create_from_points": _create_from_points,
         "adam_state_from_numpy": _adam_state,
+        "initialize_multihost": lambda: _initialize_multihost(tmp_path),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -164,3 +164,104 @@ def test_rasterize_on_card_matches_cpu(card):
     assert int(got["num_pairs"]) == int(want["num_pairs"])
     diff = (got["render"].cpu() - want["render"]).abs()
     assert (diff <= 2e-5).float().mean() >= 0.999 and diff.max() <= 5e-3
+
+
+@pytest.mark.parametrize("n_bands", [3, 4])
+def test_band_kernels_match_plain_and_the_frame(card, n_bands):
+    """K6 band by band (256 tiles: 3 bands of 86 slots with 2 pads, or 4 of
+    64): each band against its plain version, the assembled bands equal to
+    K2's frame and the summed band tables to K3's."""
+    proj = _projected(card)
+    table, aux = binning.bin_sorted_pairs(proj, 256, 256, 1 << 16)
+    ts, te = aux["tile_start"], aux["tile_end"]
+    color, invd, t_fin, _ = rasterize.composite_fwd(table, ts, te, 16)
+    gen = torch.Generator(device=card).manual_seed(1)
+    cts = [torch.randn(s, generator=gen, device=card)
+           for s in (color.shape, invd.shape, t_fin.shape)]
+    d_whole, _ = rasterize.composite_bwd(table, ts, te, 16, *cts, color,
+                                         invd, t_fin)
+    size = -(-256 // n_bands)
+    outs, d_sum = [], torch.zeros_like(table)
+    for m in range(n_bands):
+        ids, start, end = rasterize.band_slots(ts, te, n_bands, m)
+        real = torch.arange(size, device=card) + m * size < 256
+        band_cts = [c[..., ids.long(), :] * real[:, None] for c in cts]
+        before = kernels.launch_counts()
+        fwd = rasterize.composite_fwd_bands(table, start, end, 16, ids)
+        args = (table, start, end, 16, ids, *band_cts, *fwd[:3])
+        d_band, n_eval = rasterize.composite_bwd_bands(*args)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        for name in ("composite_fwd_bands", "composite_bwd_bands"):
+            assert after[name] == before[name] + 1, name
+        assert after["composite_fwd"] == before["composite_fwd"]
+        want = rasterize.composite_fwd_bands_plain(table, start, end, 16, ids)
+        for g, w in zip(fwd[:3], want[:3]):
+            diff = (g - w).abs()
+            assert (diff <= 2e-5).float().mean() >= 0.999
+            assert diff.max() <= 5e-3
+        assert torch.equal(n_eval, fwd[3])
+        d_plain, _ = rasterize.composite_bwd_bands_plain(*args)
+        for r in range(binning.ATTR_ROWS):
+            a, b = d_band[r], d_plain[r]
+            tol = 3e-4 * b.abs().max() + 2e-3 * b.abs()
+            assert ((a - b).abs() <= tol).float().mean() >= 0.999, r
+        outs.append(fwd[:3])
+        d_sum = d_sum + d_band
+    got = torch.cat([o[0] for o in outs], 1)[:, :256]
+    assert torch.equal(got, color)
+    assert torch.equal(torch.cat([o[2] for o in outs])[:256], t_fin)
+    assert torch.equal(d_sum, d_whole)
+
+
+def _sharded_rank(rank, world, n):
+    """One rank of a one-card NCCL group: the sharded step against the
+    single-rank step on the same inputs."""
+    from priordepth_gaussiansplatting_torch.parallel import integrate, mesh
+    from priordepth_gaussiansplatting_torch.parallel import step as pstep
+    from priordepth_gaussiansplatting_torch.train import optim, step
+    from priordepth_gaussiansplatting_torch.utils import config
+
+    card = torch.device("cuda")
+    m = mesh.Mesh(1, 1, device=card)
+    assert m.backend == "nccl"
+    g = PT.random_gaussians(3, n)
+    state = interop_state(g, card)
+    cam = PT.look_at_camera((0, 0, -2.5), width=128, height=128, device=card,
+                            image=np.random.default_rng(0).random(
+                                (3, 128, 128), dtype=np.float32))
+    cfgs = (config.OptimizationConfig(),
+            config.PipelineConfig(backend="kernels"))
+    cap = 1 << 18
+    s1, o1, m1 = integrate.make_sharded_fns(*cfgs, m, pair_capacity=cap).step(
+        *integrate.place_sharded(state, optim.init_adam(state.params), m),
+        pstep.stack_cameras([cam]), 1, None, torch.zeros(3, device=card))
+    s2, o2, m2 = step.make_train_step(*cfgs, pair_capacity=cap).step(
+        state, optim.init_adam(state.params), cam, 1, None,
+        torch.zeros(3, device=card))
+    return (float(m1["loss"]), float(m2["loss"]),
+            int(m1["skipped"]) + int(m2["skipped"]),
+            float((o1.mu.xyz - o2.mu.xyz).abs().max()),
+            float(o2.mu.xyz.abs().max()))
+
+
+def interop_state(g, card):
+    from priordepth_gaussiansplatting_torch import interop
+    n = g["means"].shape[0]
+    params = {
+        "xyz": g["means"], "features_dc": g["sh"][:, :3],
+        "features_rest": g["sh"][:, 3:], "scaling": np.log(g["scales"]),
+        "rotation": g["quats"],
+        "opacity": np.log(g["opacities"] / (1 - g["opacities"]))[:, None],
+        "exposure": np.eye(3, 4, dtype=np.float32)[None]}
+    return interop.gaussian_state_from_numpy(params, np.ones(n, bool), 3, 3,
+                                             device=card)
+
+
+def test_sharded_step_in_a_one_rank_nccl_group(card, tmp_path):
+    from priordepth_gaussiansplatting_torch.parallel import mesh
+    (loss, loss_single, skipped, diff, scale), = mesh.spawn(
+        1, _sharded_rank, 4096, backend="nccl", store_dir=str(tmp_path),
+        timeout=120)
+    assert skipped == 0 and abs(loss - loss_single) <= 1e-5
+    assert diff <= 3e-4 * scale and scale > 0
