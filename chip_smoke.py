@@ -28,7 +28,8 @@ line per phase:
      "train_profile": the profiler's breakdown of one train step per view;
   5. train_mid: the mid scene's parameter gradients from the kernels
      against those from the plain versions on the same card, then 3 steps,
-     a densify round, an opacity reset and 2 more steps;
+     a densify round (first against the same round on the CPU), an opacity
+     reset and 2 more steps;
   6. bands: view 0 of the full scene composited band by band with K6
      (ops.rasterize.composite_bands, forward and backward) in 4 and in 3
      bands, the launch counts of that run; the assembled frame against K2
@@ -41,7 +42,22 @@ line per phase:
      against train.step.make_train_step from the same state, then on the
      mid scene a sharded densify round, an opacity reset and a step;
   8. cli: the port's render CLI on a raycast synthetic scene;
-  9. kernels: one object per kernel (the line before the card's line).
+  9. bin: K7 (``ops.binning.expand_tiles``) through ``bin_gaussians`` on
+     view 0 of the full scene with P = 2^22, the launch counts of that run;
+     its slots and histogram against the plain version bit for bit, the
+     TileBinning against the plain pipeline's, and a rect 256 tiles wide
+     (a 4096-pixel-wide camera) against a direct enumeration;
+ 10. probe: ``python -m priordepth_gaussiansplatting_torch.perf_probe
+     1000000 1600 1066`` (stage times; K7 launched once per bin+sort call);
+ 11. train_cli: ``python -m priordepth_gaussiansplatting_torch.train`` on a
+     512x512, 32-view raycast scene for 1,000 iterations with a store of
+     2^18 rows, whose default pair capacity (2^20) holds every pair of an
+     evaluation view, and the steps' pair capacity pinned there too (the
+     steps launching K1, K5a, K2, K3, K5b and K4 once each per iteration
+     over the run, none skipped, no evaluation view overflowing, held-out
+     PSNR higher at 1,000 than at 500), a resume from its iteration-500
+     checkpoint, and the render CLI on its snapshot;
+ 12. kernels: one object per kernel (the line before the card's line).
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -73,7 +89,10 @@ assembled bands equal K2's frame and the summed band tables K3's bit for
 bit, each band's table is zero outside its pairs, and against its plain
 version K2's and K3's rules. Parameter gradients, kernels against plain
 versions, and the sharded step against the single-rank step: atol 3e-4
-max|g|, rtol 2e-3.
+max|g|, rtol 2e-3. A densify round on the card against the same round on
+the CPU (same split draws): equal counts and active rows, parameters and
+moments within 1e-5. K7 (the tile-only pair expansion) and bin_gaussians:
+bit for bit against the plain versions and the direct enumeration.
 """
 
 from __future__ import annotations
@@ -113,6 +132,8 @@ KERNELS = {
                             TPU + "rasterize_pallas.py:913"),
     "composite_bwd_bands": ("K6", "composite_bwd",
                             TPU + "rasterize_pallas.py:913"),
+    # K7: _expand_kernel_factory through bin_gaussians (call :220).
+    "expand_tiles": ("K7", "expand_pairs", TPU + "binning.py:83"),
 }
 FORWARD = ("expand_pairs", "gather_rows", "composite_fwd")
 # The kernels of one train step on the whole frame (single-rank or sharded
@@ -130,6 +151,16 @@ FULL_EYES = [(0.0, 0.0, -2.5), (0.25, -0.15, -2.45), (-0.3, 0.1, -2.4)]
 MULTI_EYES = FULL_EYES + [(0.15, 0.2, -2.45)]
 MID_N, MID_WH = 65_536, 512
 TRAIN_STEPS = 10
+# bin: the pair capacity of bin_gaussians at full width, and the wide view.
+BIN_P = 1 << 22
+WIDE_W, WIDE_H, WIDE_N = 4096, 256, 2000
+# train_cli: the scene (size, views), the run's iterations, its store and
+# its pair capacity (the JAX trainer's ladder skips updates when the pairs
+# outgrow its last rung, so the run pins the capacity, as the PROOF_r05
+# runs do).
+CLI_SCENE = (512, 32)
+CLI_ITERS, CLI_CHECK, CLI_RESUME = 1000, 500, 20
+CLI_CAPACITY, CLI_PAIRS = 1 << 18, 1 << 20
 GRAD_ATOL, GRAD_RTOL = 3e-4, 2e-3
 
 
@@ -260,6 +291,7 @@ class Smoke:
         b, r = self.binning, self.rasterize
         return swapped([
             (b, "expand_pairs", b.expand_pairs_plain),
+            (b, "expand_tiles", b.expand_tiles_plain),
             (b, "gather_rows", b.gather_rows_plain),
             (b, "sort_back_rows", lambda d, key, perm: b.gather_rows_plain(
                 d, key, perm, key.shape[0], key.shape[0])),
@@ -885,6 +917,7 @@ class Smoke:
         # gradient is not zero (most of this dense scene is occluded).
         mean_grad = state.xyz_gradient_accum / t.clamp_min(state.denom, 1.0)
         threshold = float(t.quantile(mean_grad[mean_grad > 0], 0.9))
+        dens_vs_cpu = self.densify_against_cpu(state, opt, threshold)
         n_before = int(state.num_active)
         state, opt, info = self.densify.densify_and_prune(
             state, opt, threshold, 0.005, state.spatial_lr_scale, 0.0,
@@ -908,8 +941,45 @@ class Smoke:
              v_cap=[v_cap, v_cap2], loss_kernels=loss_k, loss_plain=loss_p,
              grad_kernels_vs_plain=grad_err, densify_threshold=threshold,
              n_active_before=n_before, densify=info,
+             densify_card_vs_cpu=dens_vs_cpu,
              steps=[{key: s[key] for key in ("loss", "n_active", "num_pairs",
                                              "skipped")} for s in steps])
+
+    def densify_against_cpu(self, state, opt, threshold: float) -> dict:
+        """One densify round (size prune on) on the card and on a CPU copy
+        of the state, with the same split draws: the same counts and rows,
+        parameters and moments within 1e-5. Returns the largest
+        differences."""
+        t, I = self.torch, self.interop
+        args = (threshold, 0.005, state.spatial_lr_scale, 20.0)
+        noise = t.randn((2, state.capacity, 3),
+                        generator=t.Generator().manual_seed(1))
+        s_np, o_np = I.gaussian_state_to_numpy(state), \
+            I.adam_state_to_numpy(opt)
+        cpu_s = I.gaussian_state_from_numpy(
+            {k: s_np[k] for k in I.PARAM_FIELDS}, s_np["active"],
+            state.active_sh_degree, state.max_sh_degree, device="cpu",
+            spatial_lr_scale=state.spatial_lr_scale,
+            **{k: s_np[k] for k in I.STAT_FIELDS})
+        cpu_o = I.adam_state_from_numpy(o_np["mu"], o_np["nu"],
+                                        o_np["count"], device="cpu")
+        got = self.densify.densify_and_prune(state, opt, *args,
+                                             noise=noise.to(self.dev))
+        want = self.densify.densify_and_prune(cpu_s, cpu_o, *args,
+                                              noise=noise)
+        info = {k: int(v) for k, v in got[2].items()}
+        assert info == {k: int(v) for k, v in want[2].items()}, info
+        assert info["n_cloned"] + info["n_split"] > 0, info
+        assert bool(t.equal(got[0].active.cpu(), want[0].active))
+        diff = {}
+        for part, g, w in (("params", got[0].params, want[0].params),
+                           ("mu", got[1].mu, want[1].mu),
+                           ("nu", got[1].nu, want[1].nu)):
+            for k in I.PARAM_FIELDS:
+                d = float((getattr(g, k).cpu() - getattr(w, k)).abs().max())
+                assert d <= 1e-5, (part, k, d)
+                diff[f"{part}.{k}"] = d
+        return dict(info, max_abs_diff=max(diff.values()))
 
     def k6_within(self, table, grid_x, ids, start, end, cts, fwd=None):
         """K6 against its plain version on one slice of slots: forward by
@@ -1380,23 +1450,20 @@ class Smoke:
     def phase_cli(self):
         from priordepth_gaussiansplatting_torch.train import checkpoint
         from priordepth_gaussiansplatting_torch.utils import config
-        env = dict(os.environ, PYTHONPATH=REPO)
         with tempfile.TemporaryDirectory() as tmp:
             scene = os.path.join(tmp, "scene")
             model = os.path.join(tmp, "model")
-            subprocess.run([sys.executable, "tools/make_synthetic_scene.py",
-                            scene, "256", "4"], cwd=REPO, env=env,
-                           check=True, capture_output=True, timeout=600)
+            self.run_cmd([sys.executable, "tools/make_synthetic_scene.py",
+                          scene, "256", "4"], 600)
             g = self.testing.random_gaussians(3, 20_000, extent=0.8,
                                               scale_range=(0.01, 0.04))
             checkpoint.save_model_snapshot(model, 1000, self.state(g))
             config.save_cfg_args(model, config.ModelConfig(
                 source_path=scene, model_path=model))
             t0 = time.perf_counter()
-            subprocess.run([sys.executable, "-m",
-                            "priordepth_gaussiansplatting_torch.render",
-                            "-m", model], cwd=REPO, env=env, check=True,
-                           capture_output=True, timeout=600)
+            self.run_cmd([sys.executable, "-m",
+                          "priordepth_gaussiansplatting_torch.render", "-m",
+                          model], 600)
             cli_s = time.perf_counter() - t0
             from PIL import Image
             rdir = os.path.join(model, "train", "ours_1000", "renders")
@@ -1407,6 +1474,226 @@ class Smoke:
             assert min(stds) > 0, stds
         emit("cli", ok=True, renders=len(pngs), png_std=stds,
              cli_seconds=cli_s)
+
+    def phase_bin(self):
+        """K7 through bin_gaussians at full width, against its plain version
+        and the plain pipeline; a rect 256 tiles wide against a direct
+        enumeration."""
+        t, T, k, b = self.torch, self.testing, self.kernels, self.binning
+        g = T.random_gaussians(0, FULL_N, extent=1.0,
+                               scale_range=(0.001, 0.004))
+        state = self.state(g)
+        cam = T.look_at_camera(FULL_EYES[0], width=FULL_W, height=FULL_H,
+                               device=self.dev)
+        with t.no_grad():
+            proj = self.project(cam, state)
+        grid_x, grid_y = b.grid_shape(FULL_W, FULL_H)
+        num_tiles = grid_x * grid_y
+
+        # The main path: every count at 0 just before, read just after.
+        t.cuda.synchronize()
+        k.reset_launch_counts()
+        binned = b.bin_gaussians(proj, FULL_W, FULL_H, BIN_P)
+        t.cuda.synchronize()
+        launches = k.launch_counts()
+        assert launches == {n: int(n == "expand_tiles") for n in launches}, \
+            launches
+
+        # K7 against its plain version on the path's inputs, bit for bit.
+        x = b.tile_inputs(proj, FULL_W, FULL_H, BIN_P)
+        args = (x["offsets"], x["base"], x["nx"], x["gid"], x["total"],
+                BIN_P, grid_x, num_tiles)
+        got = b.expand_tiles(*args)
+        want = b.expand_tiles_plain(*args)
+        t.cuda.synchronize()
+        for name, a, w in zip(("tile", "gid", "hist"), got, want):
+            assert bits_equal(t, a, w), f"K7 {name} differs"
+        with self.plain_kernels():
+            plain = b.bin_gaussians(proj, FULL_W, FULL_H, BIN_P)
+        for f in ("depth_order", "gauss_ids", "tile_ids", "tile_start",
+                  "tile_end", "num_pairs", "overflow"):
+            assert bits_equal(t, getattr(binned, f), getattr(plain, f)), f
+        num_pairs, overflow = int(binned.num_pairs), int(binned.overflow)
+        assert num_pairs > 0 and int(binned.tile_end[-1]) == num_pairs
+
+        # A rect 256 tiles wide: one large Gaussian before a 4096-pixel-wide
+        # camera, among small ones (most of them above or below the view:
+        # zero-count rects in front of the camera).
+        wg = T.random_gaussians(7, WIDE_N, extent=1.0,
+                                scale_range=(0.001, 0.004))
+        wg["means"][0] = 0.0
+        wg["scales"][0] = 0.6
+        wg["opacities"][0] = 0.9
+        wcam = T.look_at_camera(FULL_EYES[0], width=WIDE_W, height=WIDE_H,
+                                device=self.dev)
+        with t.no_grad():
+            wproj = self.project(wcam, self.state(wg))
+        _, nx, counts = b._rect_geometry(wproj, WIDE_W, WIDE_H, tight=False)
+        assert int(nx.max()) >= 256, int(nx.max())
+        slots = T.enumerate_slots(wproj, WIDE_W, WIDE_H)
+        total = slots.shape[0]
+        wp = 1024 * (total // 1024 + 1)
+        wgx, wgy = b.grid_shape(WIDE_W, WIDE_H)
+        wx = b.tile_inputs(wproj, WIDE_W, WIDE_H, wp)
+        tile, gid, hist = b.expand_tiles(
+            wx["offsets"], wx["base"], wx["nx"], wx["gid"], wx["total"], wp,
+            wgx, wgx * wgy)
+        wbin = b.bin_gaussians(wproj, WIDE_W, WIDE_H, wp)
+        t.cuda.synchronize()
+        assert np.array_equal(tile[:total].cpu().numpy(), slots[:, 0])
+        assert np.array_equal(gid[:total].cpu().numpy(), slots[:, 1])
+        want_t = slots[np.argsort(slots[:, 0], kind="stable")]
+        counts_t = np.bincount(slots[:, 0], minlength=wgx * wgy)
+        assert np.array_equal(hist.cpu().numpy(), counts_t)
+        assert int(wbin.num_pairs) == total and int(wbin.overflow) == 0
+        assert np.array_equal(wbin.tile_ids[:total].cpu().numpy(),
+                              want_t[:, 0])
+        assert np.array_equal(wbin.gauss_ids[:total].cpu().numpy(),
+                              want_t[:, 1])
+        assert np.array_equal((wbin.tile_end - wbin.tile_start).cpu().numpy(),
+                              counts_t)
+
+        # Times (CUDA events) at the path's shapes, and the least time: the
+        # slots' two int32 writes, the N rows' offset, base, width and id
+        # reads, the histogram.
+        n = FULL_N
+        ms = cuda_ms(t, lambda: b.expand_tiles(*args))
+        plain_ms = cuda_ms(t, lambda: b.expand_tiles_plain(*args), reps=3)
+        bin_ms = cuda_ms(t, lambda: b.bin_gaussians(proj, FULL_W, FULL_H,
+                                                     BIN_P))
+        bound_ms, bound_by = bound(8 * BIN_P + 16 * n + 4 * num_tiles + 4, 0)
+        self.results["errs"]["expand_tiles"] = 0.0
+        self.results["ms"]["expand_tiles"] = ms
+        self.results["plain_ms"]["expand_tiles"] = plain_ms
+        self.results["library_ms"]["expand_tiles"] = None
+        self.results["bound_ms"]["expand_tiles"] = bound_ms
+        self.results["bound_by"]["expand_tiles"] = bound_by
+        emit("bin", ok=True, n=n, width=FULL_W, height=FULL_H, p_cap=BIN_P,
+             launches=launches, num_pairs=num_pairs, overflow=overflow,
+             zero_count_rects=int((x["nx"] == 0).sum()),
+             wide=dict(width=WIDE_W, height=WIDE_H, n=WIDE_N,
+                       max_rect_tiles=int(nx.max()), pairs=total,
+                       zero_count_rects=int((counts == 0).sum())),
+             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+             bin_gaussians_ms=bin_ms)
+
+    def run_cmd(self, cmd, timeout: int) -> str:
+        """Run `cmd` from the repo root; its stdout, or raise with the end
+        of its output."""
+        out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             env=dict(os.environ, PYTHONPATH=REPO),
+                             timeout=timeout)
+        if out.returncode != 0:
+            raise RuntimeError(f"{cmd[:4]} exited {out.returncode}:\n"
+                               f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        return out.stdout
+
+    def phase_probe(self):
+        """The stage probe at full width, as a user runs it."""
+        t0 = time.perf_counter()
+        out = self.run_cmd([sys.executable, "-m",
+                            "priordepth_gaussiansplatting_torch.perf_probe",
+                            str(FULL_N), str(FULL_W), str(FULL_H)], 600)
+        seconds = time.perf_counter() - t0
+        res = json.loads(out.strip().splitlines()[-1])
+        st = res["stages"]
+        calls = st["bin+sort"]["calls"]
+        assert st["project"]["launches"] == {}, st["project"]
+        assert st["bin+sort"]["launches"] == {"expand_tiles": calls}, st
+        assert st["full fwd"]["launches"] == dict.fromkeys(FORWARD, calls)
+        assert st["full fwd+bwd"]["launches"] == dict.fromkeys(STEP, calls)
+        assert res["pairs"] > 0 and res["device"].startswith("cuda")
+        self.results["launches"]["expand_tiles"] = calls
+        emit("probe", ok=True, seconds=seconds, n=res["n"],
+             width=res["width"], height=res["height"],
+             pair_capacity=res["pair_capacity"], pairs=res["pairs"],
+             overflow=res["overflow"], iters=res["iters"],
+             ms={name: v["ms"] for name, v in st.items()},
+             launches={name: v["launches"] for name, v in st.items()},
+             rays_per_s_fwd=res["rays_per_s_fwd"],
+             rays_per_s_fwd_bwd=res["rays_per_s_fwd_bwd"])
+
+    def train_cli(self, args, timeout: int = 900) -> dict:
+        """One run of the train CLI: its summary line, as JSON."""
+        out = self.run_cmd([sys.executable, "-m",
+                            "priordepth_gaussiansplatting_torch.train",
+                            "--eval", "--disable_viewer",
+                            "--noise_injection_iter", "0",
+                            "--floating_prune_iter", "0",
+                            "--init_capacity", str(CLI_CAPACITY),
+                            "--pin_pair_capacity", str(CLI_PAIRS)] + args,
+                           timeout)
+        last = out.strip().splitlines()[-1]
+        assert last.startswith("Training complete: "), last
+        res = json.loads(last[len("Training complete: "):])
+        assert res["skipped"] == 0, res
+        assert res["step_launches"] == dict.fromkeys(
+            STEP, res["iterations_run"]), res["step_launches"]
+        assert "overflowed the pair capacity" not in out, out[-3000:]
+        return res
+
+    def phase_train_cli(self):
+        """Train a raycast scene with the port's CLI, resume it from its
+        checkpoint, render its snapshot."""
+        size, views = CLI_SCENE
+        with tempfile.TemporaryDirectory() as tmp:
+            scene = os.path.join(tmp, "scene")
+            model = os.path.join(tmp, "model")
+            t0 = time.perf_counter()
+            self.run_cmd([sys.executable, "tools/make_synthetic_scene.py",
+                          scene, str(size), str(views)], 600)
+            scene_s = time.perf_counter() - t0
+            run = self.train_cli(
+                ["-s", scene, "-m", model, "--iterations", str(CLI_ITERS),
+                 "--test_iterations", str(CLI_CHECK), str(CLI_ITERS),
+                 "--save_iterations", str(CLI_ITERS),
+                 "--checkpoint_iterations", str(CLI_CHECK)])
+            assert run["iterations_run"] == CLI_ITERS
+            with open(os.path.join(model, "events.jsonl")) as f:
+                ev = [json.loads(line) for line in f]
+            psnr = {e["step"]: e["value"] for e in ev
+                    if e.get("tag") == "test/loss_viewpoint - psnr"}
+            train_psnr = {e["step"]: e["value"] for e in ev
+                          if e.get("tag") == "train/loss_viewpoint - psnr"}
+            assert psnr[CLI_ITERS] > psnr[CLI_CHECK], psnr
+            # it/s between the two evaluations: iter_time is the time since
+            # the run's start when the metrics were drained, every 50
+            # iterations.
+            clock = {e["step"]: e["value"] for e in ev
+                     if e.get("tag") == "iter_time"}
+            lo, hi = CLI_CHECK + 50, CLI_ITERS - 50
+            steady = (hi - lo) / (clock[hi] - clock[lo])
+            resumed = self.train_cli(
+                ["-s", scene, "-m", os.path.join(tmp, "resumed"),
+                 "--iterations", str(CLI_CHECK + CLI_RESUME),
+                 "--test_iterations", str(CLI_CHECK + CLI_RESUME),
+                 "--save_iterations", str(CLI_CHECK + CLI_RESUME),
+                 "--start_checkpoint",
+                 os.path.join(model, f"chkpnt{CLI_CHECK}.pkl")])
+            assert resumed["iterations_run"] == CLI_RESUME
+            t0 = time.perf_counter()
+            self.run_cmd([sys.executable, "-m",
+                          "priordepth_gaussiansplatting_torch.render", "-m",
+                          model, "--skip_train"], 600)
+            render_s = time.perf_counter() - t0
+            from PIL import Image
+            rdir = os.path.join(model, "test", f"ours_{CLI_ITERS}", "renders")
+            pngs = sorted(os.listdir(rdir))
+            assert len(pngs) == -(-views // 8), pngs
+            stds = [float(np.asarray(Image.open(os.path.join(rdir, p)),
+                                     np.float32).std()) for p in pngs]
+            assert min(stds) > 0, stds
+        emit("train_cli", ok=True, scene=dict(size=size, views=views,
+                                              seconds=scene_s),
+             iterations=CLI_ITERS, wall_s=run["wall_s"],
+             it_per_s=CLI_ITERS / run["wall_s"],
+             it_per_s_between_evals=steady, n_active=run["n_active"],
+             step_launches=run["step_launches"], skipped=run["skipped"],
+             test_psnr=psnr, train_psnr=train_psnr,
+             resumed=dict(iterations_run=resumed["iterations_run"],
+                          skipped=resumed["skipped"],
+                          wall_s=resumed["wall_s"]),
+             renders=len(pngs), render_cli_s=render_s)
 
     def kernels_line(self):
         res = self.results
@@ -1463,6 +1750,9 @@ def main(argv=None) -> int:
     smoke.phase_bands()
     smoke.phase_sharded()
     smoke.phase_cli()
+    smoke.phase_bin()
+    smoke.phase_probe()
+    smoke.phase_train_cli()
     smoke.kernels_line()
     print(smoke.smi, flush=True)
     print(json.dumps({"ok": True, "device": {

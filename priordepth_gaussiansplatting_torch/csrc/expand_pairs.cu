@@ -1,7 +1,10 @@
-// K1: (Gaussian, tile) pair expansion with the exact ellipse-vs-tile cull.
+// K1: (Gaussian, tile) pair expansion with the exact ellipse-vs-tile cull,
+// and K7 (second entry point, expand_tiles_launch): the same expansion
+// without the attribute copy and without the cull.
 //
-// Replaces the TPU kernel priordepth_gaussiansplatting_tpu/ops/binning.py
-// ::_expand_attrs_kernel_factory (launched from _bin_sorted_core).
+// K1 replaces the TPU kernel priordepth_gaussiansplatting_tpu/ops/binning.py
+// ::_expand_attrs_kernel_factory (launched from _bin_sorted_core); K7
+// replaces ::_expand_kernel_factory (launched from bin_gaussians).
 //
 // What it computes, for every pair slot pos < min(total, p_cap):
 //   * the owning Gaussian j in depth order: the last j whose exclusive pair
@@ -29,6 +32,15 @@
 // compare-matrix ranking and its one-hot MXU gathers have no counterpart:
 // the search reads the offsets directly. Writes are coalesced row by row.
 //
+// K7 keeps every live pair: per slot it writes the tile and the Gaussian id
+// and bumps the tile's histogram bin. Its offsets are those of all N
+// Gaussians in depth order, zero-count rects included: a run of equal
+// offsets ends with the one Gaussian of the run that owns pairs, and the
+// search's last-offset-<=-pos rule picks exactly it, so no slot below the
+// total lands on a zero-width rect (and none divides by 0). The rect width
+// is a full int, so rects of 256 tiles or more expand as any other. Bound:
+// bytes, as K1's (8 written per slot, the owner's 16 read mostly from L2).
+//
 // Built with -fmad=false: the cull must round exactly as the plain PyTorch
 // version (and the TPU reference) do, and a contracted multiply-add would
 // round once where they round twice.
@@ -51,6 +63,33 @@ __device__ __forceinline__ float q_at(float ca, float cb, float cc, float dx,
   return ca * dx * dx + 2.0f * cb * dx * dy + cc * dy * dy;
 }
 
+// upper_bound(offsets[0, n), pos) - 1: the last Gaussian whose exclusive
+// offset is <= pos. For pos < total it owns at least one pair.
+__device__ __forceinline__ int owner(const int* __restrict__ offsets, int n,
+                                     int pos) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (offsets[mid] <= pos) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo - 1;
+}
+
+// The tile of pair slot pos of Gaussian j: row-major over j's rect.
+__device__ __forceinline__ int tile_of(const int* __restrict__ offsets,
+                                       const int* __restrict__ base,
+                                       const int* __restrict__ nx, int j,
+                                       int pos, int grid_x) {
+  const int rank = pos - offsets[j];
+  const int w = nx[j];
+  const int q = rank / w;
+  return base[j] + q * grid_x + (rank - q * w);
+}
+
 __global__ void __launch_bounds__(kThreads) expand_pairs_kernel(
     const int* __restrict__ offsets, const int* __restrict__ base,
     const int* __restrict__ nx, const int* __restrict__ gid,
@@ -69,21 +108,8 @@ __global__ void __launch_bounds__(kThreads) expand_pairs_kernel(
     for (int r = 0; r < kRows; ++r) attrs_out[r * p + pos] = 0.0f;
     return;
   }
-  // upper_bound(offsets[0, n), pos) - 1: the last offset <= pos.
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (offsets[mid] <= pos) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  const int j = lo - 1;
-  const int rank = pos - offsets[j];
-  const int w = nx[j];
-  const int q = rank / w;
-  const int tile = base[j] + q * grid_x + (rank - q * w);
+  const int j = owner(offsets, n, pos);
+  const int tile = tile_of(offsets, base, nx, j, pos, grid_x);
 
   float a[kRows];
 #pragma unroll
@@ -117,6 +143,26 @@ __global__ void __launch_bounds__(kThreads) expand_pairs_kernel(
   if (hit) atomicAdd(&hist[tile], 1);
 }
 
+__global__ void __launch_bounds__(kThreads) expand_tiles_kernel(
+    const int* __restrict__ offsets, const int* __restrict__ base,
+    const int* __restrict__ nx, const int* __restrict__ gid,
+    const int* __restrict__ total, int n, int p_cap, int grid_x,
+    int num_tiles, int* __restrict__ tile_out, int* __restrict__ gid_out,
+    int* __restrict__ hist) {
+  const int pos = blockIdx.x * kThreads + threadIdx.x;
+  if (pos >= p_cap) return;
+  if (pos >= min(*total, p_cap)) {
+    tile_out[pos] = num_tiles;
+    gid_out[pos] = -1;
+    return;
+  }
+  const int j = owner(offsets, n, pos);
+  const int tile = tile_of(offsets, base, nx, j, pos, grid_x);
+  tile_out[pos] = tile;
+  gid_out[pos] = gid[j];
+  atomicAdd(&hist[tile], 1);
+}
+
 }  // namespace
 
 extern "C" int expand_pairs_launch(
@@ -131,6 +177,22 @@ extern "C" int expand_pairs_launch(
         (const int*)gid, (const float*)attrs, (const int*)total, n, p_cap,
         grid_x, num_tiles, (int*)tile_out, (int*)gid_out, (float*)attrs_out,
         (int*)hist);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K7. hist (num_tiles,) must be zero on entry.
+extern "C" int expand_tiles_launch(const void* offsets, const void* base,
+                                   const void* nx, const void* gid,
+                                   const void* total, int n, int p_cap,
+                                   int grid_x, int num_tiles, void* tile_out,
+                                   void* gid_out, void* hist, void* stream) {
+  if (p_cap > 0) {
+    const int blocks = (p_cap + kThreads - 1) / kThreads;
+    expand_tiles_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)offsets, (const int*)base, (const int*)nx,
+        (const int*)gid, (const int*)total, n, p_cap, grid_x, num_tiles,
+        (int*)tile_out, (int*)gid_out, (int*)hist);
   }
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,8 @@ is counted under its label: the kernel's name, or another name where one
 kernel serves two places on the path (``gather_rows`` builds the forward's
 pair table, ``gather_rows_bwd`` is the backward's sort-back), or the name of
 a source's second entry point (``composite_fwd_bands`` and
-``composite_bwd_bands``, K6: the compositor over one band of the tile grid).
+``composite_bwd_bands``, K6: the compositor over one band of the tile grid;
+``expand_tiles``, K7: the pair expansion without attributes or cull).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ KERNELS = ("expand_pairs", "gather_rows", "composite_fwd", "composite_bwd",
            "segment_reduce")
 # What the launch counts are kept under.
 LABELS = KERNELS + ("gather_rows_bwd", "composite_fwd_bands",
-                   "composite_bwd_bands")
+                   "composite_bwd_bands", "expand_tiles")
 
 _launches = dict.fromkeys(LABELS, 0)
 

@@ -27,11 +27,20 @@ Pairs beyond ``pair_capacity`` are dropped and counted in
 ``overflow_rect``; kept pairs beyond ``valid_capacity`` fall outside the
 clamped tile ranges and are counted in ``overflow_valid``.
 
+:func:`bin_gaussians` is the JAX package's first-round binning (the stage
+probe's "bin+sort"): a stable depth argsort, K7 (``expand_tiles``, the
+second entry point of ``csrc/expand_pairs.cu``: every pair of each
+Gaussian's rect, no attributes and no cull, with the tile histogram), the
+tile ranges from the histogram, and one stable sort of the (tile, Gaussian)
+pairs by tile. It returns a :class:`TileBinning`.
+
 Each kernel wrapper takes its plain PyTorch version for tensors on the CPU
 and launches its kernel for tensors on the card; there is no fallback.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -378,3 +387,117 @@ def bin_sorted_pairs(proj: ProjectedGaussians, width: int, height: int,
         pack_attributes(proj), depth_eff, base, nx, counts,
         (grid_x, grid_x * grid_y, p, v_cap))
     return table, dict(zip(AUX_KEYS, aux))
+
+
+# --- K7 and the first-round binning ------------------------------------------
+
+# bin_gaussians' pair capacity is a multiple of this (the JAX kernel's chunk).
+EXP_K = 1024
+
+
+@dataclasses.dataclass
+class TileBinning:
+    """Depth-ordered (Gaussian, tile) pairs sorted by tile, with per-tile
+    ranges; the JAX package's ``TileBinning``. ``gauss_ids`` are original
+    Gaussian indices; slots past ``num_pairs`` are padding (tile
+    ``num_tiles``, id -1)."""
+
+    depth_order: torch.Tensor  # (N,) int32, front-to-back Gaussian order
+    gauss_ids: torch.Tensor    # (P,) int32, original Gaussian per pair
+    tile_ids: torch.Tensor     # (P,) int32, tile per pair, ascending
+    tile_start: torch.Tensor   # (num_tiles,) int32
+    tile_end: torch.Tensor     # (num_tiles,) int32
+    num_pairs: torch.Tensor    # () int32, live pairs (<= P)
+    overflow: torch.Tensor     # () int32, pairs dropped for capacity
+
+
+def expand_tiles_plain(offsets, base, nx, gid, total, p_cap: int,
+                       grid_x: int, num_tiles: int):
+    """Plain PyTorch version of K7 (see ``csrc/expand_pairs.cu``)."""
+    dev = offsets.device
+    n = offsets.shape[0]
+    pos = torch.arange(p_cap, dtype=torch.int32, device=dev)
+    live = pos < torch.clamp_max(total, p_cap)
+    j = (torch.searchsorted(offsets, pos, right=True) - 1).clamp(0, n - 1)
+    rank = pos - offsets[j]
+    w = torch.clamp_min(nx[j], 1)
+    q = torch.div(rank, w, rounding_mode="floor")
+    tile = base[j] + q * grid_x + (rank - q * w)
+    tile_out = torch.where(live, tile, num_tiles).to(torch.int32)
+    gid_out = torch.where(live, gid[j], -1).to(torch.int32)
+    hist = torch.bincount(tile_out.long(), minlength=num_tiles + 1)
+    return tile_out, gid_out, hist[:num_tiles].to(torch.int32)
+
+
+def expand_tiles(offsets, base, nx, gid, total, p_cap: int, grid_x: int,
+                 num_tiles: int):
+    """K7. Inputs in depth order, zero-count rects included: exclusive pair
+    offsets (ascending, clamped to p_cap), rect base tile, rect width and
+    Gaussian id (int32, (N,)); total pairs (1,) int32. Returns, per pair
+    slot, tile id (int32, (p_cap,); num_tiles past the total) and Gaussian
+    id (-1 past the total), and the per-tile pair histogram (num_tiles,)
+    int32."""
+    if offsets.device.type == "cpu":
+        return expand_tiles_plain(offsets, base, nx, gid, total, p_cap,
+                                  grid_x, num_tiles)
+    kernels.check_cuda("expand_tiles", offsets=offsets, base=base, nx=nx,
+                       gid=gid, total=total)
+    for name, t in (("offsets", offsets), ("base", base), ("nx", nx),
+                    ("gid", gid), ("total", total)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"expand_tiles: {name} must be int32")
+    dev = offsets.device
+    tile_out = torch.empty(p_cap, dtype=torch.int32, device=dev)
+    gid_out = torch.empty(p_cap, dtype=torch.int32, device=dev)
+    hist = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
+    p, i = kernels.ptr, kernels.i32
+    kernels.launch("expand_pairs", [p] * 5 + [i] * 4 + [p] * 3,
+                   offsets, base, nx, gid, total, offsets.shape[0], p_cap,
+                   grid_x, num_tiles, tile_out, gid_out, hist,
+                   entry="expand_tiles")
+    return tile_out, gid_out, hist
+
+
+def tile_inputs(proj: ProjectedGaussians, width: int, height: int,
+                pair_capacity: int) -> dict:
+    """K7's inputs: every Gaussian in stable depth order (``depth_order``,
+    int32) with its exclusive pair offset (clamped to the capacity), rect
+    base tile, rect width (the loose ``tile_rect``) and id, and the total
+    pair count: ``total`` (1,) int32 clamped to the capacity and
+    ``total_all`` () int64."""
+    order = torch.sort(proj.depth, stable=True).indices
+    base, nx, counts = _rect_geometry(proj, width, height, tight=False)
+    counts = counts[order].to(torch.int64)
+    incl = torch.cumsum(counts, 0)
+    total_all = incl[-1] if incl.numel() else incl.new_zeros(())
+    offsets = torch.clamp_max(incl - counts, pair_capacity)
+    return dict(offsets=offsets.to(torch.int32),
+                base=base[order].to(torch.int32).contiguous(),
+                nx=nx[order].to(torch.int32).contiguous(),
+                gid=order.to(torch.int32),
+                total=torch.clamp_max(total_all, pair_capacity).to(
+                    torch.int32).reshape(1),
+                total_all=total_all)
+
+
+def bin_gaussians(proj: ProjectedGaussians, width: int, height: int,
+                  pair_capacity: int) -> TileBinning:
+    """The JAX package's ``bin_gaussians``: depth order, K7, per-tile
+    ranges from its histogram, and one stable sort of the pairs by tile
+    (depth order within each tile). `pair_capacity` is a multiple of
+    :data:`EXP_K`."""
+    p = int(pair_capacity)
+    if p % EXP_K:
+        raise ValueError(f"pair_capacity must be a multiple of {EXP_K}")
+    grid_x, grid_y = grid_shape(width, height)
+    num_tiles = grid_x * grid_y
+    x = tile_inputs(proj, width, height, p)
+    tile_ids, gid, hist = expand_tiles(
+        x["offsets"], x["base"], x["nx"], x["gid"], x["total"], p, grid_x,
+        num_tiles)
+    ends = torch.cumsum(hist, 0).to(torch.int32)
+    perm = torch.sort(tile_ids, stable=True).indices
+    return TileBinning(
+        depth_order=x["gid"], gauss_ids=gid[perm], tile_ids=tile_ids[perm],
+        tile_start=ends - hist, tile_end=ends, num_pairs=x["total"][0],
+        overflow=torch.clamp_min(x["total_all"] - p, 0).to(torch.int32))

@@ -40,7 +40,7 @@ from ..ops import reference as ref_ops
 from ..ops.ssim import ssim_map
 from ..train import optim
 from ..train.step import _where, depth_l1_weight, learning_rates
-from ..utils.config import OptimizationConfig, PipelineConfig
+from ..utils.config import BACKENDS, OptimizationConfig, PipelineConfig
 from .mesh import DATA_AXIS, GAUSS_AXIS, Mesh, all_gather_rows, pmax, psum
 
 # Columns of the gathered projection: mean2d (2), conic (3), opacity, rgb
@@ -98,7 +98,14 @@ def _render_gathered(camera: Camera, state: GaussianState, bg, screen_offset,
                      pair_capacity: int | None = None,
                      valid_capacity: int | None = None):
     """Project the local shard, all-gather it over gauss, rasterize the
-    gathered set. Returns (outputs, this shard's radii)."""
+    gathered set. Returns (outputs, this shard's radii).
+
+    The backend is the single-rank set (``ops/render.py``): ``kernels``,
+    ``oracle`` (the dense reference on purpose) or ``auto`` (kernels on the
+    card, the oracle on the CPU); anything else raises."""
+    if pipe_cfg.backend not in BACKENDS:
+        raise ValueError(f"unknown backend {pipe_cfg.backend!r}: use one of "
+                         f"{BACKENDS}")
     if camera.tan_wh is not None:
         tanx, tany = camera.tan_wh[0], camera.tan_wh[1]
         map_w, map_h = camera.pix_wh[0], camera.pix_wh[1]

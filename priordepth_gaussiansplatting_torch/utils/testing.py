@@ -1,4 +1,5 @@
-"""Synthetic-scene builders shared by tests and the chip smoke run.
+"""Synthetic scenes and reference functions shared by tests and the chip
+smoke run.
 
 ``random_gaussians`` draws with numpy from a seed and returns numpy arrays,
 so a test can hand the very same values to the JAX package and the port.
@@ -12,6 +13,7 @@ import numpy as np
 
 from ..core import cameras as camlib
 from ..core import sh as shlib
+from ..ops import binning, projection
 
 
 def look_at_camera(eye, target=(0.0, 0.0, 0.0), up=(0.0, -1.0, 0.0),
@@ -51,3 +53,17 @@ def random_gaussians(seed: int, n: int, sh_degree: int = 3,
     sh[:, :3] = shlib.rgb_to_sh(rng.uniform(0.05, 0.95, (n, 3)).astype(f32))
     return dict(means=means, scales=scales, quats=quats, opacities=opac,
                 sh=sh.astype(f32))
+
+
+def enumerate_slots(proj, width: int, height: int) -> np.ndarray:
+    """(tile, Gaussian) for every tile of every Gaussian's rect, the
+    Gaussians in stable depth order and the tiles row-major: K7's slots
+    written out as loops, (total, 2) int64."""
+    grid_x, _ = binning.grid_shape(width, height)
+    xmin, ymin, xmax, ymax = (t.tolist() for t in projection.tile_rect(
+        proj.mean2d, proj.radius, width, height))
+    order = np.argsort(proj.depth.cpu().numpy(), kind="stable")
+    slots = [(ty * grid_x + tx, int(j)) for j in order
+             for ty in range(ymin[j], ymax[j])
+             for tx in range(xmin[j], xmax[j])]
+    return np.array(slots, dtype=np.int64).reshape(-1, 2)

@@ -95,11 +95,40 @@ def _adam_state():
     interop.adam_state_from_numpy(zeros, zeros, 0)
 
 
+def _train_cli(tmp_path):
+    from priordepth_gaussiansplatting_torch.train import __main__ as cli
+    cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "m")])
+
+
+def _perf_probe():
+    from priordepth_gaussiansplatting_torch import perf_probe
+    perf_probe.main(["64", "32", "32"])
+
+
+def _densify_probe(tmp_path):
+    from priordepth_gaussiansplatting_torch import densify_probe
+    densify_probe.main([str(tmp_path / "chkpnt1.pkl"), "-s", str(tmp_path)])
+
+
+def _trainer():
+    from priordepth_gaussiansplatting_torch.train import trainer
+    from priordepth_gaussiansplatting_torch.utils import config
+    trainer.Trainer(config.ModelConfig(), config.OptimizationConfig(),
+                    config.PipelineConfig(), scene=None)
+
+
+def _load_checkpoint(tmp_path):
+    from priordepth_gaussiansplatting_torch.train import checkpoint
+    checkpoint.load_checkpoint(str(tmp_path / "chkpnt1.pkl"))
+
+
 @pytest.mark.parametrize("entry", ["resolve_device", "look_at_camera",
                                    "load_model_snapshot", "render_cli",
                                    "interop", "create_from_points",
                                    "adam_state_from_numpy",
-                                   "initialize_multihost"])
+                                   "initialize_multihost", "train_cli",
+                                   "perf_probe", "trainer",
+                                   "load_checkpoint", "densify_probe"])
 def test_entry_points_need_the_card_or_cpu(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -112,6 +141,11 @@ def test_entry_points_need_the_card_or_cpu(entry, tmp_path):
         "create_from_points": _create_from_points,
         "adam_state_from_numpy": _adam_state,
         "initialize_multihost": lambda: _initialize_multihost(tmp_path),
+        "train_cli": lambda: _train_cli(tmp_path),
+        "perf_probe": _perf_probe,
+        "trainer": _trainer,
+        "load_checkpoint": lambda: _load_checkpoint(tmp_path),
+        "densify_probe": lambda: _densify_probe(tmp_path),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
