@@ -17,14 +17,16 @@ line per phase:
      drawn with numpy) rendered through ops.render.render(backend=
      "kernels") for three views, with the launch counts of that run, each
      forward kernel against its plain version at full width, and CUDA-event
-     times; then "profile": device time by kernel and host time by operator
-     of one render per view, from torch.profiler;
+     times (``gather``: K5a beside its library call, and walking 1, 2 and
+     all 11 rows per pass); then "profile": device time by kernel and host
+     time by operator of one render per view, from torch.profiler;
   4. train: the same scene trained for 10 steps of
      train.step.make_train_step over the three views (L1 + D-SSIM +
      depth-L1 against a random inverse-depth prior, Adam, densification
      statistics), with every step's launch counts, gradients and guard
      checked; the backward kernels against their plain versions on view 0's
-     own intermediates, CUDA-event times; fwd+bwd and full-step times; then
+     own intermediates, CUDA-event times (``gather``: K5b as in full, and
+     on a source that stays in L2); fwd+bwd and full-step times; then
      "train_profile": the profiler's breakdown of one train step per view;
   5. train_mid: the mid scene's parameter gradients from the kernels
      against those from the plain versions on the same card, then 3 steps,
@@ -83,16 +85,18 @@ the T < 1e-4 stop by one pair (the repo's dense-overlap rule). K3 (composite
 backward) per-pair rows within 3e-4 max|row| + 2e-3 |ref| on >= 99.9% of
 entries (the JAX package's gradient rule; a stop moved by one pair moves
 the rest of that pixel's pairs), and its evaluated pairs equal to K2's on
->= 99.9% of pixels. K5b (sort-back) bit for bit. K4 (per-Gaussian sum)
-within 1e-5 max|row| of a float64 sum. K6 (the band compositor): the
-assembled bands equal K2's frame and the summed band tables K3's bit for
-bit, each band's table is zero outside its pairs, and against its plain
-version K2's and K3's rules. Parameter gradients, kernels against plain
-versions, and the sharded step against the single-rank step: atol 3e-4
-max|g|, rtol 2e-3. A densify round on the card against the same round on
-the CPU (same split draws): equal counts and active rows, parameters and
-moments within 1e-5. K7 (the tile-only pair expansion) and bin_gaussians:
-bit for bit against the plain versions and the direct enumeration.
+>= 99.9% of pixels. K5b (sort-back) bit for bit, and the key K4 reads (the
+id sort's values) equal to the key gathered through K5b's permutation. K4
+(per-Gaussian sum) within 1e-5 max|row| of a float64 sum. K6 (the band
+compositor): the assembled bands equal K2's frame and the summed band
+tables K3's bit for bit, each band's table is zero outside its pairs, and
+against its plain version K2's and K3's rules. Parameter gradients,
+kernels against plain versions, and the sharded step against the
+single-rank step: atol 3e-4 max|g|, rtol 2e-3. A densify round on the
+card against the same round on the CPU (same split draws): equal counts
+and active rows, parameters and moments within 1e-5. K7 (the tile-only
+pair expansion) and bin_gaussians: bit for bit against the plain versions
+and the direct enumeration.
 """
 
 from __future__ import annotations
@@ -168,13 +172,19 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def cuda_ms(torch, fn, reps: int = 20, warmup: bool = True) -> float:
-    """Mean ms per call of `fn` on the card, by CUDA events."""
+def cuda_ms(torch, fn, reps: int = 20, warmup: bool = True,
+            queued: bool = False) -> float:
+    """Mean ms per call of `fn` on the card, by CUDA events. With `queued`
+    the card first spins ~5 ms while the host enqueues the calls, so that
+    a call shorter than its own host time is timed on the card and not
+    paced by the host."""
     if warmup:
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -293,8 +303,7 @@ class Smoke:
             (b, "expand_pairs", b.expand_pairs_plain),
             (b, "expand_tiles", b.expand_tiles_plain),
             (b, "gather_rows", b.gather_rows_plain),
-            (b, "sort_back_rows", lambda d, key, perm: b.gather_rows_plain(
-                d, key, perm, key.shape[0], key.shape[0])),
+            (b, "sort_back_rows", b.sort_back_rows_plain),
             (b, "segment_reduce", b.segment_reduce_plain),
             (r, "composite_fwd", r.composite_fwd_plain),
             (r, "composite_bwd", r.composite_bwd_plain),
@@ -313,8 +322,8 @@ class Smoke:
                 return fn(*args, **kw)
             return call
         return swapped([(m, n, rec(n, getattr(m, n))) for m, n in
-                        ((r, "composite_bwd"), (b, "sort_back_rows"),
-                         (b, "segment_reduce"))])
+                        ((r, "composite_bwd"), (b, "pair_grads_to_gaussians"),
+                         (b, "sort_back_rows"), (b, "segment_reduce"))])
 
     def sample_tiles(self, ts, te, seed: int = 0):
         """The 32 busiest tiles and 32 others drawn from `seed` (int32)."""
@@ -325,6 +334,17 @@ class Smoke:
         pick = np.concatenate([busiest, rng.choice(rest, 32, False)])
         return self.torch.as_tensor(pick, dtype=self.torch.int32,
                                     device=self.dev)
+
+    def gather_orders(self, call, queued: bool = False) -> dict:
+        """{rows per pass: ms of `call`}: the gather kernel walking one row
+        per pass, the path's number, and every row at once (its first
+        walk)."""
+        b = self.binning
+        out = {}
+        for rpp in sorted({1, b.GATHER_ROWS_PER_PASS, b.ATTR_ROWS + 1}):
+            with swapped([(b, "GATHER_ROWS_PER_PASS", rpp)]):
+                out[rpp] = cuda_ms(self.torch, call, queued=queued)
+        return out
 
     def used_evaluations(self, table, ts, te, grid_x):
         """Per tile, the (pixel, pair) evaluations of kept pairs before each
@@ -515,10 +535,13 @@ class Smoke:
 
         # Times on the card (CUDA events), at the main path's shapes.
         b, r = self.binning, self.rasterize
+
+        def k5a():
+            return b.gather_rows(x["attrs"], x["gid"], x["perm"], x["v_cap"],
+                                 x["out_len"])
         ms = {
             "expand_pairs": cuda_ms(t, lambda: b.expand_pairs(**x["k1"])),
-            "gather_rows": cuda_ms(t, lambda: b.gather_rows(
-                x["attrs"], x["gid"], x["perm"], x["v_cap"], x["out_len"])),
+            "gather_rows": cuda_ms(t, k5a),
             "composite_fwd": cuda_ms(t, lambda: r.composite_fwd(
                 x["table"], x["ts"], x["te"], x["grid_x"])),
         }
@@ -572,6 +595,11 @@ class Smoke:
         bound_ms, bound_by = {}, {}
         for name, (nbytes, ops) in work.items():
             bound_ms[name], bound_by[name] = bound(nbytes, ops)
+        gather = dict(ms=ms["gather_rows"],
+                      library_ms=library_ms["gather_rows"],
+                      plain_ms=plain_ms["gather_rows"],
+                      bound_ms=bound_ms["gather_rows"],
+                      rows_per_pass_ms=self.gather_orders(k5a))
 
         # The whole render, end to end, forward only.
         render(cams[0])
@@ -593,6 +621,7 @@ class Smoke:
              num_pairs=[int(o["num_pairs"]) for o in outs],
              num_rect=info["num_rect"], cull_flips=info["cull_flips"],
              k2_tiles_checked=info["k2_tiles"], max_abs_err=errs,
+             gather=gather,
              n_evals=n_evals, ms=ms, plain_ms=plain_ms,
              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
              render_ms_per_frame=frame_ms,
@@ -709,6 +738,8 @@ class Smoke:
                            "num_pairs")})
         launches = k.launch_counts()
         assert all(launches[n] == TRAIN_STEPS for n in STEP), launches
+        # ... and no other kernel: a step's total stays at len(STEP).
+        assert sum(launches.values()) == TRAIN_STEPS * len(STEP), launches
 
         # The backward kernels against their plain versions on view 0's own
         # intermediates, as the step handed them over.
@@ -722,7 +753,7 @@ class Smoke:
         k3_eval_differ = int((n_eval != n_eval_fwd).sum())
         assert k3_eval_differ <= 1e-3 * n_eval.numel(), \
             f"K3 evaluated pairs differ from K2's on {k3_eval_differ} pixels"
-        (d_table, key, perm), _ = store["sort_back_rows"]
+        (d_table, perm), _ = store["sort_back_rows"]
         assert bits_equal(t, d_table, d_full), "K3 is not deterministic"
         sel = self.sample_tiles(ts, te)
         sub = (dC[:, sel].contiguous(), dD[sel].contiguous(),
@@ -746,12 +777,17 @@ class Smoke:
         assert float(outside.abs().max()) == 0.0, \
             "K3 wrote outside the listed tiles"
 
-        d_sorted, key_sorted = b.sort_back_rows(d_table, key, perm)
-        want5 = b.gather_rows_plain(d_table, key, perm, key.shape[0],
-                                    key.shape[0])
+        # K5b's rows, and the key K4 read (the id sort's values) against
+        # the key gathered through K5b's permutation.
+        (_, gid_sorted, num_valid, n), _ = store["pair_grads_to_gaussians"]
+        v = perm.shape[0]
+        key = t.where(t.arange(v, device=self.dev) < num_valid, gid_sorted,
+                      n).to(t.int32)
+        d_sorted = b.sort_back_rows(d_table, perm)
+        want5 = b.gather_rows_plain(d_table, key, perm, v, v)
         assert bits_equal(t, d_sorted, want5[0]), "K5b rows differ"
-        assert bits_equal(t, key_sorted, want5[1]), "K5b keys differ"
         (ds, ks, num_valid, n), _ = store["segment_reduce"]
+        assert bits_equal(t, ks, want5[1]), "K5b key: sort values differ"
         assert bits_equal(t, ds, d_sorted)
         got4 = b.segment_reduce(ds, ks, num_valid, n)
         want4 = b.segment_reduce_plain(ds, ks, num_valid, n)
@@ -766,16 +802,15 @@ class Smoke:
         ms = {
             "composite_bwd": cuda_ms(t, lambda: r.composite_bwd(*k3_args)),
             "gather_rows_bwd": cuda_ms(t, lambda: b.sort_back_rows(
-                d_table, key, perm)),
+                d_table, perm)),
             "segment_reduce": cuda_ms(t, lambda: b.segment_reduce(
                 ds, ks, num_valid, n)),
         }
-        v = key.shape[0]
         plain_ms = {
             "composite_bwd": cuda_ms(t, lambda: r.composite_bwd_plain(
                 *k3_args), reps=1, warmup=False),
-            "gather_rows_bwd": cuda_ms(t, lambda: b.gather_rows_plain(
-                d_table, key, perm, v, v), reps=3),
+            "gather_rows_bwd": cuda_ms(t, lambda: b.sort_back_rows_plain(
+                d_table, perm), reps=3),
             "segment_reduce": cuda_ms(t, lambda: b.segment_reduce_plain(
                 ds, ks, num_valid, n), reps=3),
         }
@@ -783,8 +818,8 @@ class Smoke:
         idx = t.where((pos < num_valid) & (ks < n), ks, n).long()
         library_ms = {
             "composite_bwd": None,
-            "gather_rows_bwd": cuda_ms(t, lambda: (
-                d_table.index_select(1, perm), key.index_select(0, perm))),
+            "gather_rows_bwd": cuda_ms(t, lambda: d_table.index_select(
+                1, perm)),
             "segment_reduce": cuda_ms(t, lambda: t.zeros(
                 b.ATTR_ROWS, n + 1, device=self.dev).index_add_(1, idx, ds)),
         }
@@ -799,12 +834,42 @@ class Smoke:
                               + 44 * 256 * n_tiles,
                               K2_OPS_PER_EVAL * n_evals
                               + K3_OPS_PER_USED * n_used),
-            "gather_rows_bwd": (96 * v, 0),
+            "gather_rows_bwd": (88 * v, 0),
             "segment_reduce": (40 * nv + 4 * v + 40 * n, 10 * nv),
         }
         bound_ms, bound_by = {}, {}
         for name, (nbytes, ops) in work.items():
             bound_ms[name], bound_by[name] = bound(nbytes, ops)
+        # K5b on a source that stays in L2 (2^18 columns, ~11 MB in all)
+        # through a random permutation: how near its byte bound a gather
+        # comes when no sector has to come from device memory, and whether
+        # the order of the rows still matters there. These calls are as
+        # short as their host time: queued, and also paced by the host.
+        small = min(1 << 18, v)
+        d_small = d_table[:, :small + b.COMPOSITE_PAD].contiguous()
+        p_small = t.randperm(small, device=self.dev, generator=t.Generator(
+            device=self.dev).manual_seed(0))
+
+        def k5b_small():
+            return b.sort_back_rows(d_small, p_small)
+
+        def library_small():
+            return d_small.index_select(1, p_small)
+        gather = dict(
+            ms=ms["gather_rows_bwd"],
+            library_ms=library_ms["gather_rows_bwd"],
+            plain_ms=plain_ms["gather_rows_bwd"],
+            bound_ms=bound_ms["gather_rows_bwd"],
+            rows_per_pass_ms=self.gather_orders(
+                lambda: b.sort_back_rows(d_table, perm)),
+            l2_resident=dict(
+                columns=small,
+                ms=cuda_ms(t, k5b_small, queued=True),
+                rows_per_pass_ms=self.gather_orders(k5b_small, queued=True),
+                library_ms=cuda_ms(t, library_small, queued=True),
+                host_paced_ms=cuda_ms(t, k5b_small),
+                host_paced_library_ms=cuda_ms(t, library_small),
+                bound_ms=bound(88 * small, 0)[0]))
 
         # fwd+bwd with bench.py's loss, and the whole train step.
         def fwd_bwd(cam):
@@ -855,7 +920,7 @@ class Smoke:
              k3_pixels=int(n_eval.numel()), n_evals=n_evals, n_used=n_used,
              max_abs_err=errs, ms=ms, plain_ms=plain_ms,
              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-             fwd_bwd_ms=fwd_bwd_ms,
+             gather=gather, fwd_bwd_ms=fwd_bwd_ms,
              fwd_bwd_mray_per_s=FULL_W * FULL_H / fwd_bwd_ms / 1e3,
              fwd_bwd_peak_mem_gib=fwd_bwd_gib, train_step_ms=step_ms,
              train_step_peak_mem_gib=step_gib)

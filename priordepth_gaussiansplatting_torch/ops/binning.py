@@ -19,9 +19,10 @@ pair gradients (K5b) and their per-Gaussian sum (K4); the JAX package's
 
 The backward (``_BinSortedPairs``) keys each of the first valid_capacity
 table columns by its Gaussian id (n past num_valid), sorts the key
-(``torch.sort``, stable), gathers the 10 gradient rows through that
-permutation (K5b, ``csrc/gather_rows.cu`` again) and sums each Gaussian's
-contiguous segment (K4, ``csrc/segment_reduce.cu``) in f32.
+(``torch.sort``, stable; its values are the sorted key K4 reads), gathers
+the 10 gradient rows through its permutation (K5b, ``csrc/gather_rows.cu``
+again, without the id row) and sums each Gaussian's contiguous segment
+(K4, ``csrc/segment_reduce.cu``) in f32.
 
 Pairs beyond ``pair_capacity`` are dropped and counted in
 ``overflow_rect``; kept pairs beyond ``valid_capacity`` fall outside the
@@ -182,6 +183,11 @@ def expand_pairs(offsets, base, nx, gid, attrs, total, p_cap: int,
 
 # --- K5: tile-sorted pair table --------------------------------------------
 
+# Rows the gather kernel takes per pass over the columns: few enough that
+# the rows being gathered stay in L2 (see csrc/gather_rows.cu).
+GATHER_ROWS_PER_PASS = 2
+
+
 def gather_rows_plain(src, gid, perm, v_cap: int, out_len: int):
     """Plain PyTorch version of K5 (see ``csrc/gather_rows.cu``)."""
     head = perm[:v_cap]
@@ -193,17 +199,22 @@ def gather_rows_plain(src, gid, perm, v_cap: int, out_len: int):
 
 def _launch_gather_rows(src, gid, perm, v_cap: int, out_len: int,
                         label: str):
-    kernels.check_cuda(label, src=src, gid=gid, perm=perm)
-    if src.dtype != torch.float32 or gid.dtype != torch.int32 \
-            or perm.dtype != torch.int64:
+    """K5's kernel; `gid` None gathers the table rows alone (K5b)."""
+    ids = {} if gid is None else {"gid": gid}
+    kernels.check_cuda(label, src=src, perm=perm, **ids)
+    if src.dtype != torch.float32 or perm.dtype != torch.int64 \
+            or (gid is not None and gid.dtype != torch.int32):
         raise TypeError(f"{label}: src f32, gid int32, perm int64")
+    if perm.data_ptr() % 16:
+        raise ValueError(f"{label}: perm must start on 16 bytes")
     rows, p = src.shape
     out = torch.empty(rows, out_len, dtype=torch.float32, device=src.device)
-    gid_out = torch.empty(v_cap, dtype=torch.int32, device=src.device)
+    gid_out = None if gid is None else torch.empty(
+        v_cap, dtype=torch.int32, device=src.device)
     ptr, i = kernels.ptr, kernels.i32
-    kernels.launch("gather_rows", [ptr] * 3 + [i] * 4 + [ptr] * 2,
-                   src, gid, perm, rows, p, v_cap, out_len, out, gid_out,
-                   label=label)
+    kernels.launch("gather_rows", [ptr] * 3 + [i] * 5 + [ptr] * 2,
+                   src, gid, perm, rows, p, v_cap, out_len,
+                   GATHER_ROWS_PER_PASS, out, gid_out, label=label)
     return out, gid_out
 
 
@@ -221,19 +232,24 @@ def gather_rows(src, gid, perm, v_cap: int, out_len: int):
 
 # --- K5b: the sort-back of the pair gradients --------------------------------
 
-def sort_back_rows(d_table, key, perm):
-    """K5b. The first v = ``key.shape[0]`` columns of the tile-sorted
+def sort_back_rows_plain(d_table, perm):
+    """Plain PyTorch version of K5b (see ``csrc/gather_rows.cu``)."""
+    return d_table[:, perm]
+
+
+def sort_back_rows(d_table, perm):
+    """K5b. The first v = ``perm.shape[0]`` columns of the tile-sorted
     gradient table moved into Gaussian-id order: ``out[:, i] =
-    d_table[:, perm[i]]`` and ``key_out[i] = key[perm[i]]`` for i < v, where
-    `perm` (v,) int64 sorts `key` (v,) int32. On the card, a second launch
-    of K5's kernel, counted as ``gather_rows_bwd``; the plain version is
-    :func:`gather_rows_plain`."""
-    v = key.shape[0]
+    d_table[:, perm[i]]`` for i < v, where `perm` (v,) int64 is the stable
+    sort of the id key (whose values are the sorted key). On the card, K5's
+    kernel without the id row, counted as ``gather_rows_bwd``."""
     if d_table.device.type == "cpu":
-        return gather_rows_plain(d_table, key, perm, v, v)
-    if perm.shape != (v,) or d_table.dim() != 2 or d_table.shape[1] < v:
+        return sort_back_rows_plain(d_table, perm)
+    v = perm.shape[0]
+    if d_table.dim() != 2 or d_table.shape[1] < v:
         raise ValueError("sort_back_rows: shapes do not match")
-    return _launch_gather_rows(d_table, key, perm, v, v, "gather_rows_bwd")
+    return _launch_gather_rows(d_table, None, perm, v, v,
+                               "gather_rows_bwd")[0]
 
 
 # --- K4: per-Gaussian reduction of the id-sorted pair gradients --------------
@@ -287,12 +303,13 @@ def pair_grads_to_gaussians(d_table, gid_sorted, num_valid, n: int):
     """The binning's backward: the tile-sorted pair gradients (ATTR_ROWS,
     L) summed per Gaussian into (ATTR_ROWS, n), original order. The key is
     the tile-sorted Gaussian id where position < num_valid, else n; a stable
-    sort of it, K5b through its permutation, then K4."""
+    sort of it (its values are the sorted key), K5b through its
+    permutation, then K4."""
     v = gid_sorted.shape[0]
     pos = torch.arange(v, device=gid_sorted.device)
     key = torch.where(pos < num_valid, gid_sorted, n).to(torch.int32)
-    perm = torch.sort(key, stable=True).indices
-    d_sorted, key_sorted = sort_back_rows(d_table.contiguous(), key, perm)
+    key_sorted, perm = torch.sort(key, stable=True)
+    d_sorted = sort_back_rows(d_table.contiguous(), perm)
     return segment_reduce(d_sorted, key_sorted, num_valid, n)
 
 

@@ -53,6 +53,10 @@ def test_expand_pairs_kernel_equals_plain(card, slack):
         assert torch.equal(g, w)
 
 
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
 def test_gather_rows_kernel_equals_plain(card):
     rng = np.random.default_rng(0)
     p, v_cap = 5000, 3072
@@ -63,6 +67,100 @@ def test_gather_rows_kernel_equals_plain(card):
     want = binning.gather_rows_plain(src, gid, perm, v_cap, v_cap + 1024)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# (p, v_cap, out_len): v_cap and out_len not multiples of 4 (rows that
+# start off 16 bytes), v_cap < p with K5a's zero tail, v = 1, v_cap = p.
+GATHER_SHAPES = [(5001, 3071, 4095), (5000, 3072, 4096), (7, 1, 1025),
+                 (4096, 4096, 5120), (70_001, 65_537, 66_561)]
+
+
+@pytest.mark.parametrize("rows_per_pass", [1, 2, 11])
+@pytest.mark.parametrize("shape", GATHER_SHAPES)
+def test_gather_rows_kernel_bit_equal_at_ragged_shapes(card, monkeypatch,
+                                                       shape,
+                                                       rows_per_pass):
+    """K5a against its plain version bit for bit (table, zero tail, ids)
+    with one launch, at shapes the main path's capacities (multiples of
+    4096) never give, and with the rows walked 1, 2 or 11 per pass."""
+    monkeypatch.setattr(binning, "GATHER_ROWS_PER_PASS", rows_per_pass)
+    p, v_cap, out_len = shape
+    rng = np.random.default_rng(p)
+    src = torch.from_numpy(
+        rng.standard_normal((10, p), dtype=np.float32)).to(card)
+    src[0, :3] = torch.tensor([-0.0, float("inf"), float("nan")])
+    gid = torch.from_numpy(rng.integers(0, 999, p, dtype=np.int32)).to(card)
+    perm = torch.from_numpy(rng.permutation(p)).to(card)
+    before = kernels.launch_counts()
+    got = binning.gather_rows(src, gid, perm, v_cap, out_len)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["gather_rows"] == before["gather_rows"] + 1
+    assert after["gather_rows_bwd"] == before["gather_rows_bwd"]
+    want = binning.gather_rows_plain(src, gid, perm, v_cap, out_len)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(_bits(g), _bits(w))
+    assert int(got[0][:, v_cap:].view(torch.int32).abs().max()) == 0
+
+
+@pytest.mark.parametrize("v", [1, 4097, 50_001])
+def test_sort_back_kernel_bit_equal_with_ties_and_padding(card, v):
+    """K5b against its plain version bit for bit with one launch: a key
+    with ties and padding ids = n, v not a multiple of 4, a gradient table
+    wider than v; the sorted key is the sort's values."""
+    n = max(v // 3, 1)
+    rng = np.random.default_rng(v)
+    key = torch.from_numpy(rng.integers(0, n + 1, v, dtype=np.int32)).to(card)
+    key[-min(v, 5):] = n
+    d_table = torch.from_numpy(
+        rng.standard_normal((10, v + 1024), dtype=np.float32)).to(card)
+    key_sorted, perm = torch.sort(key, stable=True)
+    before = kernels.launch_counts()
+    got = binning.sort_back_rows(d_table, perm)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["gather_rows_bwd"] == before["gather_rows_bwd"] + 1
+    assert after["gather_rows"] == before["gather_rows"]
+    want = binning.sort_back_rows_plain(d_table, perm)
+    assert got.shape == (10, v) and torch.equal(_bits(got), _bits(want))
+    assert torch.equal(key_sorted, key[perm])
+
+
+def test_gather_kernels_refuse_an_index_off_16_bytes(card):
+    d_table = torch.zeros(10, 2048, device=card)
+    perm = torch.arange(1025, device=card)
+    with pytest.raises(ValueError, match="16 bytes"):
+        binning.sort_back_rows(d_table, perm[1:])
+
+
+def test_binning_step_launches_each_gather_once(card, monkeypatch):
+    """The binning forward and backward: K1, K5a, K5b and K4 once each and
+    no other kernel; the gradients equal those with K1, K5a and K5b
+    replaced by their plain versions bit for bit (K4, deterministic, runs
+    in both)."""
+    proj = _projected(card)
+    w = torch.randn(10, (1 << 16) + binning.COMPOSITE_PAD, device=card,
+                    generator=torch.Generator(device=card).manual_seed(3))
+
+    def grads():
+        leaves = {k: getattr(proj, k).detach().requires_grad_(True)
+                  for k in ("mean2d", "conic", "opacity", "rgb", "invdepth")}
+        table, _ = binning.bin_sorted_pairs(proj.replace(**leaves), 256, 256,
+                                            1 << 16)
+        return torch.autograd.grad((table * w).sum(), list(leaves.values()))
+
+    before = kernels.launch_counts()
+    got = grads()
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    delta = {k: after[k] - before[k] for k in after}
+    assert delta == {k: int(k in ("expand_pairs", "gather_rows",
+                                  "gather_rows_bwd", "segment_reduce"))
+                     for k in after}, delta
+    for name in ("expand_pairs", "gather_rows", "sort_back_rows"):
+        monkeypatch.setattr(binning, name, getattr(binning, f"{name}_plain"))
+    for g, w_ in zip(got, grads()):
+        assert torch.equal(_bits(g), _bits(w_))
 
 
 def test_composite_kernel_matches_plain(card):
@@ -109,9 +207,9 @@ def test_sort_back_and_segment_reduce_kernels_equal_plain(card):
     key = torch.from_numpy(rng.integers(0, n + 1, v, dtype=np.int32)).to(card)
     d_table = torch.from_numpy(
         rng.standard_normal((10, v + 1024), dtype=np.float32)).to(card)
-    perm = torch.sort(key, stable=True).indices
+    key_sorted, perm = torch.sort(key, stable=True)
     before = kernels.launch_counts()
-    d_sorted, key_sorted = binning.sort_back_rows(d_table, key, perm)
+    d_sorted = binning.sort_back_rows(d_table, perm)
     want = binning.gather_rows_plain(d_table, key, perm, v, v)
     assert torch.equal(d_sorted, want[0]) and torch.equal(key_sorted, want[1])
     num_valid = torch.tensor(v - 777, dtype=torch.int32, device=card)

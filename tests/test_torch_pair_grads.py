@@ -155,7 +155,60 @@ def test_sort_back_rows_is_a_gather():
     rng = np.random.default_rng(4)
     table = torch.from_numpy(rng.standard_normal((10, 300), dtype=np.float32))
     key = torch.from_numpy(rng.integers(0, 50, 256, dtype=np.int32))
-    perm = torch.sort(key, stable=True).indices
-    d_sorted, key_sorted = pbin.sort_back_rows(table, key, perm)
+    key_sorted, perm = torch.sort(key, stable=True)
+    d_sorted = pbin.sort_back_rows(table, perm)
     assert torch.equal(d_sorted, table[:, perm])
-    assert torch.equal(key_sorted, torch.sort(key, stable=True).values)
+    assert torch.equal(key_sorted, key[perm])
+
+
+@pytest.mark.parametrize("v", [1, 255, 1024])
+def test_sort_back_rows_plain_equals_gather_rows_plain(v):
+    """K5b's plain version, without the id row, moves the rows K5a's plain
+    version moves; the sort's values are the key it no longer gathers
+    (ties and padding ids = n)."""
+    n = 40
+    rng = np.random.default_rng(v)
+    table = torch.from_numpy(
+        rng.standard_normal((pbin.ATTR_ROWS, v + 1024), dtype=np.float32))
+    key = torch.from_numpy(rng.integers(0, n + 1, v, dtype=np.int32))
+    key_sorted, perm = torch.sort(key, stable=True)
+    rows, key_out = pbin.gather_rows_plain(table, key, perm, v, v)
+    for got in (pbin.sort_back_rows(table, perm),
+                pbin.sort_back_rows_plain(table, perm)):
+        assert torch.equal(got.view(torch.int32), rows.view(torch.int32))
+    assert torch.equal(key_sorted, key_out)
+
+
+@pytest.mark.parametrize("v", [301, 1023])
+def test_pair_grads_to_gaussians_matches_jax_bin_sorted_bwd(v):
+    """The binning's backward, K4 reading the stable sort's values as the
+    sorted key, against JAX's ``_bin_sorted_bwd`` (exact f32 routing,
+    interpret mode) and a float64 sum: an odd v with padding columns past
+    it (ones, which must not reach any Gaussian), positions from num_valid
+    on keyed n, and Gaussians without pairs."""
+    n, pad = 97, 64
+    rng = np.random.default_rng(v)
+    gid_sorted = rng.integers(0, n - 7, v, dtype=np.int32)
+    num_valid = v - 11
+    table = np.concatenate(
+        [rng.standard_normal((pbin.ATTR_ROWS, v), dtype=np.float32),
+         np.ones((pbin.ATTR_ROWS, pad), np.float32)], axis=1)
+    got = pbin.pair_grads_to_gaussians(
+        torch.from_numpy(table), torch.from_numpy(gid_sorted),
+        torch.tensor(num_valid, dtype=torch.int32), n).numpy()
+
+    v_pad = 1024 * -(-(v + pad) // 1024)
+    d16 = np.zeros((16, v_pad), np.float32)
+    d16[:pbin.ATTR_ROWS, :v + pad] = table
+    spec = (64, 64, v_pad, v, True, True)
+    res = (pbin.ATTR_ROWS, n, (n,), (1,), (1,), jnp.asarray(gid_sorted),
+           jnp.int32(num_valid))
+    want_j = np.asarray(jbin._bin_sorted_bwd(spec, res,
+                                             (jnp.asarray(d16),))[0])
+    truth = np.zeros((pbin.ATTR_ROWS, n))
+    np.add.at(truth.T, gid_sorted[:num_valid],
+              table[:, :num_valid].T.astype(np.float64))
+    assert got.shape == want_j.shape == (pbin.ATTR_ROWS, n)
+    for want in (want_j, truth):
+        np.testing.assert_allclose(got, want, atol=2e-4)
+    assert np.abs(got[:, n - 7:]).max() == 0.0
