@@ -8,11 +8,15 @@ Builds the port's CUDA kernels from ``priordepth_gaussiansplatting_torch/
 csrc/`` (one nvcc per source, in parallel), then runs, printing one JSON
 line per phase:
 
-  1. device: the card, its power limit, the toolkit, the build and the TF32
-     switches (both must be off);
+  1. device: the card, its power limit, the toolkit, the build (with each
+     library's registers and spills from ptxas, and the compositor's blocks
+     and warps per SM from the occupancy calculator) and the TF32 switches
+     (both must be off);
   2. mid: each forward kernel against its plain PyTorch version on the same
      inputs (65,536 Gaussians at 512x512, SH degree 3, antialiasing; and a
-     dense-overlap scene);
+     dense-overlap scene), then K3 from random cotangents (deterministic,
+     its evaluated pairs equal to K2's, against its plain version), and on
+     the 65,536-Gaussian scene K2's and K3's times beside their bounds;
   3. full: 1,000,000 Gaussians at 1600x1066 (bench.py's random Gaussians,
      drawn with numpy) rendered through ops.render.render(backend=
      "kernels") for three views, with the launch counts of that run, each
@@ -84,8 +88,9 @@ values and within 5e-3 everywhere: a product rounded differently can move
 the T < 1e-4 stop by one pair (the repo's dense-overlap rule). K3 (composite
 backward) per-pair rows within 3e-4 max|row| + 2e-3 |ref| on >= 99.9% of
 entries (the JAX package's gradient rule; a stop moved by one pair moves
-the rest of that pixel's pairs), and its evaluated pairs equal to K2's on
->= 99.9% of pixels. K5b (sort-back) bit for bit, and the key K4 reads (the
+the rest of that pixel's pairs), its evaluated pairs equal to K2's on every
+pixel (both walk through one evaluation function), and two launches equal
+bit for bit. K5b (sort-back) bit for bit, and the key K4 reads (the
 id sort's values) equal to the key gathered through K5b's permutation. K4
 (per-Gaussian sum) within 1e-5 max|row| of a float64 sum. K6 (the band
 compositor): the assembled bands equal K2's frame and the summed band
@@ -102,6 +107,7 @@ and the direct enumeration.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -370,6 +376,16 @@ class Smoke:
             total[tile] = (keep & live).sum()
         return total
 
+    def walk_stats(self, table, ts, te, grid_x, n_used: int) -> dict:
+        """How many of a tile's four warps walk a pair in K2 and K3 (their
+        warp lists, from the plain form ``walking_warps_plain``), and how
+        many of a walked warp's 64 pixels keep the pair on average."""
+        walks = self.rasterize.walking_warps_plain(table, ts, te, grid_x)
+        walked = sum(int(((walks >> w) & 1).sum()) for w in range(4))
+        pairs = int((te - ts).clamp_min(0).sum())
+        return dict(pairs=pairs, walked_warps_per_pair=walked / pairs,
+                    kept_pixels_per_walked_warp=n_used / walked)
+
     # --- kernel vs plain -----------------------------------------------------
 
     def check_kernels(self, proj, w, h, p_cap, v_cap, tiles=None):
@@ -456,6 +472,19 @@ class Smoke:
                      for ln in build.ptxas_report(name).splitlines()
                      if "Used" in ln or "spill" in ln]
             ptxas[name] = lines
+        # Resident blocks and warps per SM of the compositor's four entry
+        # points (CUDA occupancy calculator).
+        occupancy = {}
+        for name in ("composite_fwd", "composite_bwd"):
+            out = (ctypes.c_int * 3)()
+            rc = build.entry(name, f"{name}_occupancy",
+                             [ctypes.POINTER(ctypes.c_int)])(out)
+            assert rc == 0, (name, rc)
+            for label, blocks in ((name, out[0]), (f"{name}_bands", out[1])):
+                assert blocks >= 1, (label, blocks)
+                occupancy[label] = dict(threads_per_block=out[2],
+                                        blocks_per_sm=blocks,
+                                        warps_per_sm=blocks * out[2] // 32)
         # The port switches TF32 off when it is imported: the projection's
         # products and SSIM's convolutions run in true f32.
         tf32 = {"matmul": t.backends.cuda.matmul.allow_tf32,
@@ -467,7 +496,7 @@ class Smoke:
              torch=t.__version__, torch_cuda=t.version.cuda,
              build_s={k: round(v, 3) for k, v in build_seconds.items()},
              build_wall_s=round(build_wall, 3), ptxas=ptxas,
-             allow_tf32=tf32)
+             occupancy=occupancy, allow_tf32=tf32)
 
     def phase_mid(self):
         T = self.testing
@@ -482,10 +511,87 @@ class Smoke:
             cam = T.look_at_camera(eye, width=wh, height=wh, device=self.dev)
             proj = self.project(cam, state)
             p_cap, v_cap = self.capacities(proj, wh, wh)
-            errs, _, info = self.check_kernels(proj, wh, wh, p_cap, v_cap)
+            errs, x, info = self.check_kernels(proj, wh, wh, p_cap, v_cap)
             out[label] = dict(max_abs_err=errs, p_cap=p_cap, v_cap=v_cap,
-                              **info)
+                              **info, **self.check_composite_pair(
+                                  x, timed=label != "dense_overlap"))
         emit("mid", ok=True, **out)
+
+    def check_k3_tiles(self, args, d_full, sel) -> dict:
+        """K3 over the listed tiles `sel` (int32) with `args` (K3's
+        arguments over all tiles, whose table `d_full` is): equal to
+        `d_full` on their columns bit for bit, nothing written outside
+        them, and within K3's rule of its plain version."""
+        t, r = self.torch, self.rasterize
+        table, ts, te, grid_x = args[:4]
+        sub = [c[..., sel, :].contiguous() for c in args[4:]]
+        got, got_eval = r.composite_bwd(table, ts, te, grid_x, *sub,
+                                        tiles=sel)
+        want, want_eval = r.composite_bwd_plain(table, ts, te, grid_x, *sub,
+                                                tiles=sel)
+        cols = t.cat([t.arange(s, e, device=self.dev) for s, e in
+                      zip(ts[sel].tolist(), te[sel].tolist())])
+        assert bits_equal(t, got[:, cols], d_full[:, cols]), \
+            "K3 over listed tiles differs from K3 over all tiles"
+        a, w = got[:, cols], want[:, cols]
+        within = ((a - w).abs() <= GRAD_ATOL * w.abs().amax(1, keepdim=True)
+                  + GRAD_RTOL * w.abs()).float().mean(1)
+        assert float(within.min()) >= 0.999, f"K3 rows: {within.tolist()}"
+        assert float((got_eval == want_eval).float().mean()) >= 0.999
+        outside = got.clone()
+        outside[:, cols] = 0.0
+        assert float(outside.abs().max()) == 0.0, \
+            "K3 wrote outside the listed tiles"
+        return dict(k3_tiles_checked=int(sel.shape[0]),
+                    k3_rows_within=within.tolist(),
+                    k3_max_abs_err=float((a - w).abs().max()))
+
+    def check_composite_pair(self, x, timed: bool) -> dict:
+        """K3 over the whole frame of `x` (check_kernels' inputs) from
+        random cotangents: two launches equal bit for bit, its evaluated
+        pairs equal K2's on every pixel, and K3's rule against its plain
+        version on sampled tiles (all tiles of a small frame; see
+        check_k3_tiles). With `timed`, K2's and K3's times beside their
+        bounds."""
+        t, r = self.torch, self.rasterize
+        table, ts, te, grid_x = x["table"], x["ts"], x["te"], x["grid_x"]
+        nt = int(ts.shape[0])
+        fwd = r.composite_fwd(table, ts, te, grid_x)
+        gen = t.Generator(device=self.dev).manual_seed(3)
+        cts = [t.randn(c, nt, r.PIX, generator=gen, device=self.dev)
+               for c in (3, 1, 1)]
+        args = (table, ts, te, grid_x, cts[0], cts[1][0], cts[2][0],
+                *fwd[:3])
+        d1, e1 = r.composite_bwd(*args)
+        d2, e2 = r.composite_bwd(*args)
+        t.cuda.synchronize()
+        assert bits_equal(t, d1, d2) and bits_equal(t, e1, e2), \
+            "K3 is not deterministic"
+        differ = int((e1 != fwd[3]).sum())
+        assert differ == 0, f"K3 evaluated pairs differ from K2's on {differ}"
+        out = self.check_k3_tiles(args, d1, self.sample_tiles(ts, te)
+                                  if nt > 64 else t.arange(
+                                      nt, dtype=t.int32, device=self.dev))
+        if timed:
+            n_evals = int(fwd[3].sum())
+            n_used = int(self.used_evaluations(table, ts, te, grid_x).sum())
+            nv = int(te.max())
+            length = table.shape[1]
+            out.update(
+                n_evals=n_evals, n_used=n_used,
+                walk=self.walk_stats(table, ts, te, grid_x, n_used),
+                ms={"composite_fwd": cuda_ms(t, lambda: r.composite_fwd(
+                    table, ts, te, grid_x)),
+                    "composite_bwd": cuda_ms(t, lambda: r.composite_bwd(
+                        *args))},
+                bound_ms={
+                    "composite_fwd": bound(40 * nv + 8 * nt + 24 * 256 * nt,
+                                           K2_OPS_PER_EVAL * n_evals)[0],
+                    "composite_bwd": bound(
+                        40 * nv + 40 * length + 8 * nt + 44 * 256 * nt,
+                        K2_OPS_PER_EVAL * n_evals
+                        + K3_OPS_PER_USED * n_used)[0]})
+        return out
 
     def phase_full(self):
         t, T, k = self.torch, self.testing, self.kernels
@@ -751,31 +857,11 @@ class Smoke:
         d_full, n_eval = r.composite_bwd(*k3_args)
         t.cuda.synchronize()
         k3_eval_differ = int((n_eval != n_eval_fwd).sum())
-        assert k3_eval_differ <= 1e-3 * n_eval.numel(), \
+        assert k3_eval_differ == 0, \
             f"K3 evaluated pairs differ from K2's on {k3_eval_differ} pixels"
         (d_table, perm), _ = store["sort_back_rows"]
         assert bits_equal(t, d_table, d_full), "K3 is not deterministic"
-        sel = self.sample_tiles(ts, te)
-        sub = (dC[:, sel].contiguous(), dD[sel].contiguous(),
-               dT[sel].contiguous(), C[:, sel].contiguous(),
-               D[sel].contiguous(), T_fin[sel].contiguous())
-        got, got_eval = r.composite_bwd(table, ts, te, grid_x, *sub,
-                                        tiles=sel)
-        want, want_eval = r.composite_bwd_plain(table, ts, te, grid_x, *sub,
-                                                tiles=sel)
-        cols = t.cat([t.arange(s, e, device=self.dev) for s, e in
-                      zip(ts[sel].tolist(), te[sel].tolist())])
-        assert bits_equal(t, got[:, cols], d_full[:, cols]), \
-            "K3 over listed tiles differs from K3 over all tiles"
-        a, w = got[:, cols], want[:, cols]
-        within = ((a - w).abs() <= 3e-4 * w.abs().amax(1, keepdim=True)
-                  + 2e-3 * w.abs()).float().mean(1)
-        assert float(within.min()) >= 0.999, f"K3 rows: {within.tolist()}"
-        assert float((got_eval == want_eval).float().mean()) >= 0.999
-        outside = got.clone()
-        outside[:, cols] = 0.0
-        assert float(outside.abs().max()) == 0.0, \
-            "K3 wrote outside the listed tiles"
+        k3 = self.check_k3_tiles(k3_args, d_full, self.sample_tiles(ts, te))
 
         # K5b's rows, and the key K4 read (the id sort's values) against
         # the key gathered through K5b's permutation.
@@ -794,7 +880,7 @@ class Smoke:
         t.cuda.synchronize()
         scale4 = want4.abs().amax(1, keepdim=True)
         assert bool(((got4 - want4).abs() <= 1e-5 * scale4).all()), "K4"
-        errs = {"composite_bwd": float((a - w).abs().max()),
+        errs = {"composite_bwd": k3.pop("k3_max_abs_err"),
                 "gather_rows_bwd": float((d_sorted - want5[0]).abs().max()),
                 "segment_reduce": float((got4 - want4).abs().max())}
 
@@ -914,10 +1000,10 @@ class Smoke:
         emit("train", ok=True, n=FULL_N, width=FULL_W, height=FULL_H,
              views=len(cams), steps=TRAIN_STEPS, p_cap=p_cap, v_cap=v_cap,
              per_step=steps, launches=launches,
-             k3_tiles_checked=int(sel.shape[0]),
-             k3_rows_within=within.tolist(),
+             **k3,
              k3_eval_differ_k2=k3_eval_differ,
              k3_pixels=int(n_eval.numel()), n_evals=n_evals, n_used=n_used,
+             walk=self.walk_stats(table, ts, te, grid_x, n_used),
              max_abs_err=errs, ms=ms, plain_ms=plain_ms,
              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
              gather=gather, fwd_bwd_ms=fwd_bwd_ms,

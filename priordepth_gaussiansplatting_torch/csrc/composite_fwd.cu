@@ -21,93 +21,107 @@
 // (id 0, empty range) composites nothing: colour and inverse depth 0, T 1,
 // no pair evaluated. The arithmetic is K2's, in the same kernel.
 //
-// Bound on the H100: operations. Each (pixel, pair) evaluation costs about
-// 20 f32 operations and one expf, while the table is read once per tile
-// (10 words per pair, shared by 256 pixels). Design: one block per tile and
-// one thread per pixel, as the CUDA rasterizer this system follows. The
-// block stages batches of 256 pairs in shared memory, one pair per thread,
-// so each pair is read from device memory once per tile. Each thread keeps
-// its running product T in a register (the TPU kernel's log-space scan,
-// triangular matmuls and bit-packed lanes have no counterpart), and the
-// block leaves its loop as soon as every pixel has terminated
-// (__syncthreads_count). expf is the accurate one (no fast math), and
-// -fmad=false keeps power and alpha rounded as the plain version rounds
-// them, so the 1/255 and 1e-4 cut-offs fall on the same pairs.
+// Bound on the H100: operations. Each (pixel, pair) evaluation is about 20
+// f32 operations and one expf, while the table is read once per tile (10
+// words per pair), and the kernel is bound by instruction issue. Design
+// (composite_eval.cuh): one block of 128 threads per tile, two vertically
+// adjacent pixels per thread, so the two share dx, the column's terms of
+// the power and every shared-memory load; pairs staged 128 at a time as
+// 16-byte records; each warp (an 8x8 quarter of the tile) walks only the
+// pairs that can reach alpha 1/255 somewhere in its quarter, which the
+// staging thread decides from the conic and the opacity; the evaluation
+// and the accumulation run without branches, as selects. Each thread keeps
+// its running products T in registers (the TPU kernel's log-space scan,
+// triangular matmuls and bit-packed lanes have no counterpart); a warp
+// stops walking once all its pixels have stopped, the block once all 256
+// have. expf is the accurate one and -fmad=false keeps power and alpha
+// rounded as the plain version rounds them, so the 1/255 and 1e-4 cut-offs
+// fall on the same pairs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "composite_eval.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;
-constexpr int kRows = 10;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
+using namespace composite;
 
 // kSlotRanges: ranges are indexed by slot b (K6) instead of by tile id (K2).
 template <bool kSlotRanges>
-__global__ void __launch_bounds__(kPix) composite_fwd_kernel(
+__global__ void __launch_bounds__(kThreads) composite_fwd_kernel(
     const float* __restrict__ table, int L, const int* __restrict__ tile_start,
     const int* __restrict__ tile_end, const int* __restrict__ tile_ids,
     int n_tiles, int grid_x, float* __restrict__ color,
     float* __restrict__ invd, float* __restrict__ final_t,
     int* __restrict__ n_eval) {
-  __shared__ float s[kRows][kPix];
+  __shared__ Staged s;
   const int b = blockIdx.x;
   const int t = tile_ids != nullptr ? tile_ids[b] : b;
   const int tid = threadIdx.x;
+  const int warp = tid >> 5;
   const int ty = t / grid_x;
   const int tx = t - ty * grid_x;
-  const float px = (float)(tx * kTile + (tid % kTile));
-  const float py = (float)(ty * kTile + (tid / kTile));
+  const Pixels pix = thread_pixels(tid);
+  const float tile_x0 = (float)(tx * kTile);
+  const float tile_y0 = (float)(ty * kTile);
+  const float px = (float)(tx * kTile + pix.col);
+  const float py[2] = {(float)(ty * kTile + pix.row),
+                       (float)(ty * kTile + pix.row + 1)};
   const int start = tile_start[kSlotRanges ? b : t];
   const int end = tile_end[kSlotRanges ? b : t];
 
-  float T = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, d = 0.0f;
-  int evaluated = 0;
-  bool done = false;
-  for (int batch = start; batch < end; batch += kPix) {
-    // Also the barrier that protects the previous batch's shared rows.
-    if (__syncthreads_count(!done) == 0) break;
-    const int k = batch + tid;
-    if (k < end) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) s[r][tid] = table[(size_t)r * L + k];
-    }
+  float T[2] = {1.0f, 1.0f}, c0[2] = {0.0f, 0.0f}, c1[2] = {0.0f, 0.0f};
+  float c2[2] = {0.0f, 0.0f}, d[2] = {0.0f, 0.0f};
+  int stop[2] = {-1, -1};
+  for (int batch = start; batch < end; batch += kBatch) {
+    const bool live = stop[0] < 0 || stop[1] < 0;
+    // Also the barrier that protects the previous batch's shared memory.
+    if (__syncthreads_count(live) == 0) break;
+    stage(s, table, L, batch + tid, batch + tid < end, tile_x0, tile_y0);
     __syncthreads();
-    const int count = min(kPix, end - batch);
-    for (int i = 0; i < count && !done; ++i) {
-      const float dx = px - s[0][i];
-      const float dy = py - s[1][i];
-      const float power =
-          -0.5f * (s[2][i] * dx * dx + s[4][i] * dy * dy) - s[3][i] * dx * dy;
-      ++evaluated;
-      if (power > 0.0f) continue;
-      const float alpha = fminf(kAlphaMax, s[5][i] * expf(power));
-      if (alpha < kAlphaMin) continue;
-      const float test_t = T * (1.0f - alpha);
-      if (test_t < kTEps) {
-        done = true;
-        break;
+    for (int c = 0; c < kChunks; ++c) {
+      unsigned m = s.list[warp][c];
+      if (m == 0u) continue;
+      if (!__any_sync(kFull, stop[0] < 0 || stop[1] < 0)) break;
+      while (m != 0u) {
+        const int j = c * 32 + __ffs(m) - 1;
+        m &= m - 1u;
+        const float4 geo = s.geo[j];
+        const float4 aux = s.aux[j];
+        const float4 rgbd = s.col[j];
+        const float dx = px - geo.x;
+        const float adxx = geo.z * dx * dx;
+        const float bdx = geo.w * dx;
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const Eval e = evaluate(adxx, bdx, aux, py[p] - geo.y);
+          float test_t;
+          const int out = outcome(e, T[p], test_t);
+          const bool live = stop[p] < 0;
+          if (live && out == kStopped) stop[p] = batch + j;
+          const bool kept = live && out == kKept;
+          const float w = e.alpha * T[p];
+          c0[p] = kept ? c0[p] + w * rgbd.x : c0[p];
+          c1[p] = kept ? c1[p] + w * rgbd.y : c1[p];
+          c2[p] = kept ? c2[p] + w * rgbd.z : c2[p];
+          d[p] = kept ? d[p] + w * rgbd.w : d[p];
+          T[p] = kept ? test_t : T[p];
+        }
       }
-      const float w = alpha * T;
-      c0 += w * s[6][i];
-      c1 += w * s[7][i];
-      c2 += w * s[8][i];
-      d += w * s[9][i];
-      T = test_t;
     }
   }
-  const size_t o = (size_t)b * kPix + tid;
   const size_t plane = (size_t)n_tiles * kPix;
-  color[o] = c0;
-  color[plane + o] = c1;
-  color[2 * plane + o] = c2;
-  invd[o] = d;
-  final_t[o] = T;
-  n_eval[o] = evaluated;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const size_t o = (size_t)b * kPix + pix.index + p * kTile;
+    color[o] = c0[p];
+    color[plane + o] = c1[p];
+    color[2 * plane + o] = c2[p];
+    invd[o] = d[p];
+    final_t[o] = T[p];
+    n_eval[o] = evaluated(stop[p], start, end);
+  }
 }
 
 template <bool kSlotRanges>
@@ -117,7 +131,7 @@ int launch(const void* table, int L, const void* tile_start,
            void* stream) {
   if (n_tiles > 0) {
     composite_fwd_kernel<kSlotRanges>
-        <<<n_tiles, kPix, 0, (cudaStream_t)stream>>>(
+        <<<n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)table, L, (const int*)tile_start, (const int*)tile_end,
         (const int*)tile_ids, n_tiles, grid_x, (float*)color, (float*)invd,
         (float*)final_t, (int*)n_eval);
@@ -148,6 +162,19 @@ extern "C" int composite_fwd_bands_launch(const void* table, int L,
                                           void* stream) {
   return launch<true>(table, L, slot_start, slot_end, tile_ids, n_slots,
                       grid_x, color, invd, final_t, n_eval, stream);
+}
+
+// Resident blocks per SM of K2 and K6's forward (out[0], out[1]) and the
+// threads of a block (out[2]), from the CUDA occupancy calculator.
+extern "C" int composite_fwd_occupancy(int* out) {
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], composite_fwd_kernel<false>, kThreads, 0);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[1], composite_fwd_kernel<true>, kThreads, 0);
+  }
+  out[2] = kThreads;
+  return (int)err;
 }
 
 extern "C" const char* composite_fwd_error(int code) {

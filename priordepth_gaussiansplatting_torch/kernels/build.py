@@ -6,8 +6,8 @@ Each ``csrc/<name>.cu`` exports a plain C entry point ``<name>_launch``
 export a second form of its kernel under another ``<entry>_launch``. No PyTorch
 header is included, so one source compiles in seconds. Libraries go to
 ``build/kernels/`` at the root of the checkout, named by a digest of the
-source and the flags, and are built at first use. :func:`build` starts one
-nvcc per missing source, all at once.
+source, the ``csrc/`` headers it includes and the flags, and are built at
+first use. :func:`build` starts one nvcc per missing source, all at once.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -43,9 +44,22 @@ def nvcc() -> str:
     return path
 
 
+def _sources(path: Path, seen: list) -> list:
+    """`path` and, depth first, every file of ``csrc/`` it includes with
+    ``#include "..."``, each once."""
+    if path not in seen:
+        seen.append(path)
+        for inc in re.findall(rb'^\s*#\s*include\s+"([^"]+)"',
+                              path.read_bytes(), flags=re.M):
+            _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where kernel `name`'s library goes: named by a digest of its source,
+    the headers it includes and the flags."""
+    text = b"".join(p.read_bytes() for p in _sources(CSRC / f"{name}.cu", []))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -79,6 +79,60 @@ def composite_fwd_bands_plain(table, band_start, band_end, grid_x: int,
     return color, invd, final_t, n_eval
 
 
+def _edge_min(a, b, c, det, x0, x1, y):
+    """``edge_min`` of ``csrc/composite_eval.cuh`` in the same f32
+    operations: a lower bound of a x^2 + 2 b x y + c y^2 over x in [x0, x1]."""
+    cyy = c * y * y
+    m = torch.minimum(a * x0 * x0 + 2.0 * b * x0 * y + cyy,
+                      a * x1 * x1 + 2.0 * b * x1 * y + cyy)
+    xs = -b * y / a
+    slack = 1e-3 * (1.0 + x0.abs() + x1.abs())
+    inner = (xs >= x0 - slack) & (xs <= x1 + slack)
+    return torch.where(inner, torch.minimum(m, y * y * det / a), m)
+
+
+def walking_warps_plain(table, tile_start, tile_end, grid_x: int):
+    """Which of the four warps of K2's and K3's block walk each pair: bit w
+    of entry k is set when a pixel of warp w's 8x8 quarter of pair k's tile
+    may keep pair k (``keeping_warps`` of ``csrc/composite_eval.cuh``, in
+    the same f32 operations). (L,) int32, 0 outside the tiles' ranges."""
+    dev = table.device
+    counts = (tile_end - tile_start).clamp_min(0).long()
+    tiles = torch.repeat_interleave(torch.arange(counts.shape[0],
+                                                 device=dev), counts)
+    first = torch.cumsum(counts, 0) - counts
+    cols = (torch.repeat_interleave(tile_start.long(), counts)
+            + torch.arange(tiles.shape[0], device=dev)
+            - torch.repeat_interleave(first, counts))
+    mx, my, a, b, c, op = table[:6, cols]
+    thr = torch.log(ALPHA_MIN / op) - 1e-3
+    tile_x0 = (tiles % grid_x * TILE).to(torch.float32)
+    tile_y0 = (tiles // grid_x * TILE).to(torch.float32)
+    ac = a * c
+    det = ac - b * b
+    limit = -2.06 * thr
+    walks = torch.zeros_like(tiles, dtype=torch.int32)
+    for w in range(4):
+        left = tile_x0 + float(8 * (w & 1))
+        top = tile_y0 + float(8 * (w >> 1))
+        x0, x1 = left - mx, (left + 7.0) - mx
+        y0, y1 = top - my, (top + 7.0) - my
+        inside = (x0 <= 0) & (x1 >= 0) & (y0 <= 0) & (y1 >= 0)
+        low = torch.minimum(
+            torch.minimum(_edge_min(a, b, c, det, x0, x1, y0),
+                          _edge_min(a, b, c, det, x0, x1, y1)),
+            torch.minimum(_edge_min(c, b, a, det, y0, y1, x0),
+                          _edge_min(c, b, a, det, y0, y1, x1)))
+        walks |= (inside | (low <= limit)).to(torch.int32) << w
+    finite = ((mx.abs() < 1e8) & (my.abs() < 1e8) & (a < 1e12)
+              & (b.abs() < 1e12) & (c < 1e12) & (a > 0) & (c > 0))
+    walks = torch.where(finite & (thr < 0) & (det >= 0.01 * ac), walks, 15)
+    walks = torch.where(finite & (thr >= 0), 0, walks)
+    out = torch.zeros(table.shape[1], dtype=torch.int32, device=dev)
+    out[cols] = walks
+    return out
+
+
 def _all_tiles(tile_start, tiles):
     if tiles is None:
         return torch.arange(tile_start.shape[0], dtype=torch.int32,

@@ -312,6 +312,124 @@ def test_band_kernels_match_plain_and_the_frame(card, n_bands):
     assert torch.equal(d_sum, d_whole)
 
 
+# Tile sizes around the compositor's chunks of 32 pairs and batches of 128
+# (and the 256 of its first design), then two built tiles: "opaque", whose
+# pixels all stop within the first batch, and "stops", where one pixel stops
+# on the last pair of the first batch and another on the last of the second.
+RANGE_SIZES = (0, 1, 31, 32, 33, 127, 128, 129, 255, 256, 257, 600)
+RANGE_GRID_X = 4
+
+
+def _conics(rng, n, sigma):
+    """Conics (a, b, c) of n rotated Gaussians with the given axis sigmas
+    (2, n) plus the rasterizer's 0.3 px^2 low-pass."""
+    th = rng.uniform(0.0, np.pi, n)
+    cos, sin = np.cos(th), np.sin(th)
+    sx2, sy2 = sigma[0] ** 2, sigma[1] ** 2
+    cxx = cos * cos * sx2 + sin * sin * sy2 + 0.3
+    cyy = sin * sin * sx2 + cos * cos * sy2 + 0.3
+    cxy = cos * sin * (sx2 - sy2)
+    det = cxx * cyy - cxy * cxy
+    return cyy / det, -cxy / det, cxx / det
+
+
+def _range_table(card):
+    """A (ATTR_ROWS, L) pair table over a 4x4 grid of tiles (RANGE_SIZES,
+    then the opaque and the stopping tile, then two empty ones) with its
+    tile ranges; means scattered over each tile and 8 px around it, axis
+    sigmas 0.3-6 px with some 20 px streaks (conics outside the warp-row
+    bound), opacities 0.02-0.99 with some at the 1/255 cut-off."""
+    rng = np.random.default_rng(5)
+    cols, starts, ends, pos = [], [], [], 0
+    for t, n in enumerate(RANGE_SIZES + (300, 300)):
+        ty, tx = divmod(t, RANGE_GRID_X)
+        x0, y0 = 16.0 * tx, 16.0 * ty
+        sigma = rng.uniform(0.3, 6.0, (2, n))
+        sigma[0, rng.random(n) < 0.1] = 20.0
+        op = rng.uniform(0.02, 0.99, n)
+        op[rng.random(n) < 0.05] = 1.0 / 255.0
+        mx = x0 + rng.uniform(-8.0, 24.0, n)
+        my = y0 + rng.uniform(-8.0, 24.0, n)
+        if t == len(RANGE_SIZES):            # opaque: wide, near-opaque
+            sigma[:] = 40.0
+            op[:] = 0.99
+            mx, my = x0 + 7.5 + 0 * mx, y0 + 7.5 + 0 * my
+        elif t == len(RANGE_SIZES) + 1:      # stops: transparent but four
+            op[:] = 0.0
+            for k, (cx, cy) in ((126, (3, 5)), (127, (3, 5)),
+                                (254, (12, 9)), (255, (12, 9))):
+                op[k], mx[k], my[k] = 0.99, x0 + cx, y0 + cy
+        a, b, c = _conics(rng, n, sigma)
+        block = np.stack([mx, my, a, b, c, op,
+                          *rng.random((3, n)), rng.uniform(0.2, 2.0, n)])
+        cols.append(block.astype(np.float32))
+        starts.append(pos)
+        pos += n
+        ends.append(pos)
+    n_tiles = RANGE_GRID_X * RANGE_GRID_X
+    starts += [pos] * (n_tiles - len(starts))
+    ends += [pos] * (n_tiles - len(ends))
+    table = np.concatenate(cols + [np.zeros((10, 64), np.float32)], 1)
+    return (torch.as_tensor(table, device=card),
+            torch.tensor(starts, dtype=torch.int32, device=card),
+            torch.tensor(ends, dtype=torch.int32, device=card))
+
+
+def _rows_within(got, want):
+    """Each row's share of entries within the gradient rule."""
+    tol = 3e-4 * want.abs().amax(1, keepdim=True) + 2e-3 * want.abs()
+    return ((got - want).abs() <= tol).float().mean(1)
+
+
+def test_composite_kernels_at_batch_boundaries(card):
+    """K2 and K3 on tiles of 0 to 600 pairs, every pixel of the opaque tile
+    stopping in the first batch and two pixels stopping on the last pair of
+    a batch: against the plain versions, K3 twice bit for bit with K2's
+    evaluated pairs, and K6's bands equal to the frame."""
+    table, ts, te = _range_table(card)
+    gx = RANGE_GRID_X
+    fwd = rasterize.composite_fwd(table, ts, te, gx)
+    want = rasterize.composite_fwd_plain(table, ts, te, gx)
+    for g, w in zip(fwd[:3], want[:3]):
+        diff = (g - w).abs()
+        assert (diff <= 2e-5).float().mean() >= 0.999
+        assert diff.max() <= 5e-3
+    assert torch.equal(fwd[3], want[3])
+    opaque, stops = len(RANGE_SIZES), len(RANGE_SIZES) + 1
+    assert int(fwd[3][opaque].max()) <= 128
+    assert int(fwd[3][stops][16 * 5 + 3]) == 128
+    assert int(fwd[3][stops][16 * 9 + 12]) == 256
+    assert int((fwd[3][stops] == 300).sum()) == 254
+    gen = torch.Generator(device=card).manual_seed(2)
+    cts = [torch.randn(s, generator=gen, device=card)
+           for s in (fwd[0].shape, fwd[1].shape, fwd[2].shape)]
+    args = (table, ts, te, gx, *cts, *fwd[:3])
+    d1, e1 = rasterize.composite_bwd(*args)
+    d2, e2 = rasterize.composite_bwd(*args)
+    assert torch.equal(_bits(d1), _bits(d2)) and torch.equal(e1, e2)
+    assert torch.equal(e1, fwd[3])
+    d_plain, _ = rasterize.composite_bwd_plain(*args)
+    assert float(_rows_within(d1, d_plain).min()) >= 0.999
+    assert float(d1[:, int(te[-1]):].abs().max()) == 0.0
+    for n_bands in (3, 4):
+        size = -(-16 // n_bands)
+        outs, d_sum = [], torch.zeros_like(table)
+        for m in range(n_bands):
+            ids, start, end = rasterize.band_slots(ts, te, n_bands, m)
+            real = torch.arange(size, device=card) + m * size < 16
+            band_cts = [c[..., ids.long(), :] * real[:, None] for c in cts]
+            out = rasterize.composite_fwd_bands(table, start, end, gx, ids)
+            d_band, e_band = rasterize.composite_bwd_bands(
+                table, start, end, gx, ids, *band_cts, *out[:3])
+            assert torch.equal(e_band, out[3])
+            outs.append(out)
+            d_sum = d_sum + d_band
+        for k in range(4):
+            got = torch.cat([o[k] for o in outs], -2)[..., :16, :]
+            assert torch.equal(_bits(got), _bits(fwd[k])), (n_bands, k)
+        assert torch.equal(d_sum, d1), n_bands
+
+
 def _sharded_rank(rank, world, n):
     """One rank of a one-card NCCL group: the sharded step against the
     single-rank step on the same inputs."""
