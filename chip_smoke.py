@@ -9,9 +9,10 @@ csrc/`` (one nvcc per source, in parallel), then runs, printing one JSON
 line per phase:
 
   1. device: the card, its power limit, the toolkit, the build (with each
-     library's registers and spills from ptxas, and the compositor's blocks
-     and warps per SM from the occupancy calculator) and the TF32 switches
-     (both must be off);
+     library's registers and spills from ptxas, and the blocks and warps
+     per SM of the compositor's, K1's, K7's and K4's entry points from the
+     occupancy calculator, K4 at the 128 and 1,024 ids per block of the mid
+     and the full scene) and the TF32 switches (both must be off);
   2. mid: each forward kernel against its plain PyTorch version on the same
      inputs (65,536 Gaussians at 512x512, SH degree 3, antialiasing; and a
      dense-overlap scene), then K3 from random cotangents (deterministic,
@@ -29,11 +30,14 @@ line per phase:
      depth-L1 against a random inverse-depth prior, Adam, densification
      statistics), with every step's launch counts, gradients and guard
      checked; the backward kernels against their plain versions on view 0's
-     own intermediates, CUDA-event times (``gather``: K5b as in full, and
-     on a source that stays in L2); fwd+bwd and full-step times; then
+     own intermediates (K4 also twice, bit for bit), CUDA-event times
+     (``gather``: K5b as in full, and on a source that stays in L2; ``k4``:
+     K4 beside ``torch.segment_reduce`` and ``index_add_``); fwd+bwd and
+     full-step times; then
      "train_profile": the profiler's breakdown of one train step per view;
   5. train_mid: the mid scene's parameter gradients from the kernels
-     against those from the plain versions on the same card, then 3 steps,
+     against those from the plain versions on the same card, K4 on that
+     step's own pairs (``k4``, as in train), then 3 steps,
      a densify round (first against the same round on the CPU), an opacity
      reset and 2 more steps;
   6. bands: view 0 of the full scene composited band by band with K6
@@ -92,7 +96,8 @@ the rest of that pixel's pairs), its evaluated pairs equal to K2's on every
 pixel (both walk through one evaluation function), and two launches equal
 bit for bit. K5b (sort-back) bit for bit, and the key K4 reads (the
 id sort's values) equal to the key gathered through K5b's permutation. K4
-(per-Gaussian sum) within 1e-5 max|row| of a float64 sum. K6 (the band
+(per-Gaussian sum) within 1e-5 max|row| of a float64 sum, and two launches
+equal bit for bit. K6 (the band
 compositor): the assembled bands equal K2's frame and the summed band
 tables K3's bit for bit, each band's table is zero outside its pairs, and
 against its plain version K2's and K3's rules. Parameter gradients,
@@ -386,6 +391,52 @@ class Smoke:
         return dict(pairs=pairs, walked_warps_per_pair=walked / pairs,
                     kept_pixels_per_walked_warp=n_used / walked)
 
+    def check_k4(self, ds, ks, num_valid, n) -> dict:
+        """K4 on its inputs from a step: two launches equal bit for bit,
+        within 1e-5 max|row| of its plain version (a float64 sum), and its
+        time (CUDA events) beside its plain version's, its bound (40 bytes
+        per valid pair, 4 per key, 40 per Gaussian) and its yardsticks: the
+        one PyTorch call that computes its function, ``torch.segment_reduce``
+        over each Gaussian's segment (the offsets, from ``segment_bounds``,
+        made before the timed calls), and the float ``index_add_`` that the
+        earlier PRs named."""
+        t, b = self.torch, self.binning
+        rows, v = ds.shape
+        got = b.segment_reduce(ds, ks, num_valid, n)
+        again = b.segment_reduce(ds, ks, num_valid, n)
+        want = b.segment_reduce_plain(ds, ks, num_valid, n)
+        offsets = b.segment_bounds(ks, num_valid, n).long().expand(
+            rows, n + 1)
+
+        def library():
+            return t.segment_reduce(ds, "sum", offsets=offsets, axis=1)
+        lib = library()
+        t.cuda.synchronize()
+        assert bits_equal(t, got, again), "K4 is not deterministic"
+        scale = want.abs().amax(1, keepdim=True)
+        assert bool(((got - want).abs() <= 1e-5 * scale).all()), "K4"
+        assert bool(((lib - want).abs() <= 1e-5 * scale).all()), \
+            "torch.segment_reduce"
+        pos = t.arange(v, device=ds.device)
+        idx = t.where((pos < num_valid) & (ks < n), ks, n).long()
+        nv = min(int(num_valid), v)
+        bound_ms, bound_by = bound(40 * nv + 4 * v + 40 * n, 10 * nv)
+        # queued: K4 can run shorter than its wrapper's host time
+        return dict(
+            n=n, v=v, num_valid=nv,
+            max_abs_err=float((got - want).abs().max()),
+            share_bit_equal_plain=float(
+                (got.view(t.int32) == want.view(t.int32)).float().mean()),
+            ms=cuda_ms(t, lambda: b.segment_reduce(ds, ks, num_valid, n),
+                       queued=True),
+            plain_ms=cuda_ms(t, lambda: b.segment_reduce_plain(
+                ds, ks, num_valid, n), reps=3),
+            library_ms=cuda_ms(t, library, queued=True),
+            index_add_ms=cuda_ms(t, lambda: t.zeros(
+                rows, n + 1, device=ds.device).index_add_(1, idx, ds),
+                queued=True),
+            bound_ms=bound_ms, bound_by=bound_by)
+
     # --- kernel vs plain -----------------------------------------------------
 
     def check_kernels(self, proj, w, h, p_cap, v_cap, tiles=None):
@@ -473,14 +524,25 @@ class Smoke:
                      if "Used" in ln or "spill" in ln]
             ptxas[name] = lines
         # Resident blocks and warps per SM of the compositor's four entry
-        # points (CUDA occupancy calculator).
+        # points, K1 and K7, and K4 at the ids per block of the mid and the
+        # full scene and at the most (CUDA occupancy calculator).
         occupancy = {}
-        for name in ("composite_fwd", "composite_bwd"):
+        outp = [ctypes.POINTER(ctypes.c_int)]
+        queries = [(name, second, f"{name}_occupancy", outp, ())
+                   for name, second in (("composite_fwd",
+                                         "composite_fwd_bands"),
+                                        ("composite_bwd",
+                                         "composite_bwd_bands"),
+                                        ("expand_pairs", "expand_tiles"))]
+        queries += [("segment_reduce", f"segment_reduce_scalar_g{ids}",
+                     "segment_reduce_occupancy", [ctypes.c_int] + outp,
+                     (ids,)) for ids in (128, 1024)]
+        for name, second, fn, argtypes, args in queries:
             out = (ctypes.c_int * 3)()
-            rc = build.entry(name, f"{name}_occupancy",
-                             [ctypes.POINTER(ctypes.c_int)])(out)
+            rc = build.entry(name, fn, argtypes)(*args, out)
             assert rc == 0, (name, rc)
-            for label, blocks in ((name, out[0]), (f"{name}_bands", out[1])):
+            first = name if not args else f"{name}_g{args[0]}"
+            for label, blocks in ((first, out[0]), (second, out[1])):
                 assert blocks >= 1, (label, blocks)
                 occupancy[label] = dict(threads_per_block=out[2],
                                         blocks_per_sm=blocks,
@@ -646,7 +708,9 @@ class Smoke:
             return b.gather_rows(x["attrs"], x["gid"], x["perm"], x["v_cap"],
                                  x["out_len"])
         ms = {
-            "expand_pairs": cuda_ms(t, lambda: b.expand_pairs(**x["k1"])),
+            # queued: K1 runs about as long as its wrapper's host time
+            "expand_pairs": cuda_ms(t, lambda: b.expand_pairs(**x["k1"]),
+                                    queued=True),
             "gather_rows": cuda_ms(t, k5a),
             "composite_fwd": cuda_ms(t, lambda: r.composite_fwd(
                 x["table"], x["ts"], x["te"], x["grid_x"])),
@@ -688,9 +752,10 @@ class Smoke:
         n_live = int((t.diff(offsets, append=x["k1"]["total"]) > 0).sum())
         num_tiles = int(x["ts"].shape[0])
         nv = min(info["num_valid"], v_cap)
+        # K1 writes 12 words to every slot up to p_cap (the padding slots'
+        # tile, -1 id and zero rows too) and reads each live Gaussian's 14.
         work = {
-            "expand_pairs": ((4 * p_cap + 44 * tot + 4 * num_tiles
-                              + 56 * n_live + 4),
+            "expand_pairs": (48 * p_cap + 56 * n_live + 4 * num_tiles + 4,
                              K1_OPS_PER_SLOT * tot),
             "gather_rows": (8 * x["v_cap"] + 44 * x["v_cap"]
                             + 40 * x["out_len"] + 4 * x["v_cap"], 0),
@@ -875,39 +940,30 @@ class Smoke:
         (ds, ks, num_valid, n), _ = store["segment_reduce"]
         assert bits_equal(t, ks, want5[1]), "K5b key: sort values differ"
         assert bits_equal(t, ds, d_sorted)
-        got4 = b.segment_reduce(ds, ks, num_valid, n)
-        want4 = b.segment_reduce_plain(ds, ks, num_valid, n)
-        t.cuda.synchronize()
-        scale4 = want4.abs().amax(1, keepdim=True)
-        assert bool(((got4 - want4).abs() <= 1e-5 * scale4).all()), "K4"
+        k4 = self.check_k4(ds, ks, num_valid, n)
         errs = {"composite_bwd": k3.pop("k3_max_abs_err"),
                 "gather_rows_bwd": float((d_sorted - want5[0]).abs().max()),
-                "segment_reduce": float((got4 - want4).abs().max())}
+                "segment_reduce": k4["max_abs_err"]}
 
         # Times on the card (CUDA events), at the main path's shapes.
         ms = {
             "composite_bwd": cuda_ms(t, lambda: r.composite_bwd(*k3_args)),
             "gather_rows_bwd": cuda_ms(t, lambda: b.sort_back_rows(
                 d_table, perm)),
-            "segment_reduce": cuda_ms(t, lambda: b.segment_reduce(
-                ds, ks, num_valid, n)),
+            "segment_reduce": k4["ms"],
         }
         plain_ms = {
             "composite_bwd": cuda_ms(t, lambda: r.composite_bwd_plain(
                 *k3_args), reps=1, warmup=False),
             "gather_rows_bwd": cuda_ms(t, lambda: b.sort_back_rows_plain(
                 d_table, perm), reps=3),
-            "segment_reduce": cuda_ms(t, lambda: b.segment_reduce_plain(
-                ds, ks, num_valid, n), reps=3),
+            "segment_reduce": k4["plain_ms"],
         }
-        pos = t.arange(v, device=self.dev)
-        idx = t.where((pos < num_valid) & (ks < n), ks, n).long()
         library_ms = {
             "composite_bwd": None,
             "gather_rows_bwd": cuda_ms(t, lambda: d_table.index_select(
                 1, perm)),
-            "segment_reduce": cuda_ms(t, lambda: t.zeros(
-                b.ATTR_ROWS, n + 1, device=self.dev).index_add_(1, idx, ds)),
+            "segment_reduce": k4["library_ms"],
         }
 
         # Least time for each kernel's work on this run's data.
@@ -921,11 +977,12 @@ class Smoke:
                               K2_OPS_PER_EVAL * n_evals
                               + K3_OPS_PER_USED * n_used),
             "gather_rows_bwd": (88 * v, 0),
-            "segment_reduce": (40 * nv + 4 * v + 40 * n, 10 * nv),
         }
         bound_ms, bound_by = {}, {}
         for name, (nbytes, ops) in work.items():
             bound_ms[name], bound_by[name] = bound(nbytes, ops)
+        bound_ms["segment_reduce"] = k4["bound_ms"]
+        bound_by["segment_reduce"] = k4["bound_by"]
         # K5b on a source that stays in L2 (2^18 columns, ~11 MB in all)
         # through a random permutation: how near its byte bound a gather
         # comes when no sector has to come from device memory, and whether
@@ -1006,7 +1063,9 @@ class Smoke:
              walk=self.walk_stats(table, ts, te, grid_x, n_used),
              max_abs_err=errs, ms=ms, plain_ms=plain_ms,
              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-             gather=gather, fwd_bwd_ms=fwd_bwd_ms,
+             gather=gather, k4=k4,
+             k4_ids_per_block=b.segment_ids_per_block(n, v),
+             fwd_bwd_ms=fwd_bwd_ms,
              fwd_bwd_mray_per_s=FULL_W * FULL_H / fwd_bwd_ms / 1e3,
              fwd_bwd_peak_mem_gib=fwd_bwd_gib, train_step_ms=step_ms,
              train_step_peak_mem_gib=step_gib)
@@ -1029,10 +1088,10 @@ class Smoke:
         opt = self.optim.init_adam(state.params)
         bg = t.zeros(3, device=self.dev)
 
-        runs = {}
+        runs, store = {}, {}
         for label in ("kernels", "plain"):
             with self.plain_kernels() if label == "plain" \
-                    else contextlib.nullcontext():
+                    else self.recording(store):
                 before = sum(k.launch_counts().values())
                 runs[label] = fns.step(state, opt, cams[0], 1, None, bg)
                 t.cuda.synchronize()
@@ -1054,6 +1113,9 @@ class Smoke:
             grad_err[n] = {"max_abs": float(diff.max()), "max_ref": scale,
                            "within": float(ok.float().mean())}
             assert bool(ok.all()), (n, grad_err[n])
+        # K4 on the mid scene's own pairs (~26 per active Gaussian).
+        (ds, ks, num_valid, n), _ = store["segment_reduce"]
+        k4 = self.check_k4(ds, ks, num_valid, n)
 
         state, opt, _, _ = runs["kernels"]
         # Without trained exposures the exposure group has no gradient.
@@ -1090,7 +1152,8 @@ class Smoke:
         emit("train_mid", ok=True, n=MID_N, capacity=state.capacity,
              width=wh, height=wh, p_cap=[p_cap, p_cap2],
              v_cap=[v_cap, v_cap2], loss_kernels=loss_k, loss_plain=loss_p,
-             grad_kernels_vs_plain=grad_err, densify_threshold=threshold,
+             grad_kernels_vs_plain=grad_err, k4=k4,
+             densify_threshold=threshold,
              n_active_before=n_before, densify=info,
              densify_card_vs_cpu=dens_vs_cpu,
              steps=[{key: s[key] for key in ("loss", "n_active", "num_pairs",

@@ -23,14 +23,38 @@
 // The output index is pos, so a stable sort by tile id afterwards gives
 // depth order within each tile, exactly the TPU kernel's pair order.
 //
-// Bound on the H100: bytes. Each slot writes 12 words and reads its owner's
-// 14 words (mostly from L2, neighbouring slots share owners); the cull is
-// ~70 f32 operations per slot, far below the byte time. Design: one thread
-// per slot with a binary search for the owner, so the load is balanced
-// whatever a Gaussian's rect size (one thread per Gaussian would leave a
-// warp waiting on its largest rect). The TPU kernel's windowed DMA, its
-// compare-matrix ranking and its one-hot MXU gathers have no counterpart:
-// the search reads the offsets directly. Writes are coalesced row by row.
+// Bound on the H100: bytes. Every slot up to p_cap writes 12 words (48
+// bytes, the padding slots' -1 ids and zero rows included) and each
+// Gaussian that owns a slot is read once (14 words); the cull is ~70 f32
+// operations per slot, far below the byte time.
+//
+// Design. One thread per slot, 256 slots a block, so the load is balanced
+// whatever a Gaussian's rect size. The first design searched each slot's
+// owner alone (20 dependent loads over the 1M offsets) and then made 10
+// separate 4-byte reads of the owner's attribute rows, which the
+// neighbouring slots repeated. Now:
+//   * warp 0 finds the owner j0 of the block's first slot by a 32-way
+//     search (csrc/warp_search.cuh, four rounds for 1M offsets);
+//   * the block's owners are j0, j0 + 1, ... up to the owner of its last
+//     live slot: at most 256 (a live Gaussian owns at least one slot, the
+//     live offsets ascend strictly). Thread t reads offset j0 + t, and the
+//     block stages the owners' offsets, rect bases, widths, ids and 10
+//     attribute rows in shared memory once, each row one coalesced read
+//     (ops/binning.py::owner_window_plain is the plain form of the window);
+//   * each slot finds its owner by a binary search over the window in
+//     shared memory (8 steps) and reads its attributes from there.
+// On the full scene (1M Gaussians, 2.6M slots) the staging is what pays:
+// the search alone, or the histogram aggregated per warp
+// (__match_any_sync, few tiles repeat within a warp), two slots a thread,
+// streaming stores and the cull's per-Gaussian terms staged gained nothing
+// measurable on the H100. What is left is the 48 bytes written per slot
+// and the histogram's one global atomic per kept pair.
+// Should the window not hold the block's owners (offsets that do not
+// ascend strictly, which the depth sort does not produce), the block
+// searches each slot's owner in device memory as the first design did, so
+// the result follows the same rule. The TPU kernel's windowed DMA, its
+// compare-matrix ranking and its one-hot MXU gathers have no counterpart.
+// Writes are coalesced row by row.
 //
 // K7 keeps every live pair: per slot it writes the tile and the Gaussian id
 // and bumps the tile's histogram bin. Its offsets are those of all N
@@ -40,13 +64,17 @@
 // total lands on a zero-width rect (and none divides by 0). The rect width
 // is a full int, so rects of 256 tiles or more expand as any other. Bound:
 // bytes, as K1's (8 written per slot, the owner's 16 read mostly from L2).
+// K7 keeps the first design: one search per slot, one atomic per pair.
 //
 // Built with -fmad=false: the cull must round exactly as the plain PyTorch
 // version (and the TPU reference) do, and a contracted multiply-add would
 // round once where they round twice.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "warp_search.cuh"
 
 namespace {
 
@@ -90,33 +118,13 @@ __device__ __forceinline__ int tile_of(const int* __restrict__ offsets,
   return base[j] + q * grid_x + (rank - q * w);
 }
 
-__global__ void __launch_bounds__(kThreads) expand_pairs_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ base,
-    const int* __restrict__ nx, const int* __restrict__ gid,
-    const float* __restrict__ attrs, const int* __restrict__ total, int n,
-    int p_cap, int grid_x, int num_tiles, int* __restrict__ tile_out,
-    int* __restrict__ gid_out, float* __restrict__ attrs_out,
-    int* __restrict__ hist) {
-  const int pos = blockIdx.x * kThreads + threadIdx.x;
-  if (pos >= p_cap) return;
-  const int tot = min(*total, p_cap);
-  const size_t p = (size_t)p_cap;
-  if (pos >= tot) {
-    tile_out[pos] = num_tiles;
-    gid_out[pos] = -1;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) attrs_out[r * p + pos] = 0.0f;
-    return;
-  }
-  const int j = owner(offsets, n, pos);
-  const int tile = tile_of(offsets, base, nx, j, pos, grid_x);
-
-  float a[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) a[r] = attrs[(size_t)r * n + j];
+// Whether the pair of a Gaussian (attribute rows a) and `tile` is kept:
+// the exact minimum of its conic quadratic over the tile's pixel box
+// against 2 ln(255 op) + 1e-3.
+__device__ __forceinline__ bool cull_keep(const float* a, int tile,
+                                          int grid_x) {
   const float mx = a[0], my = a[1], ca = a[2], cb = a[3], cc = a[4],
               op = a[5];
-
   const int ty = tile / grid_x;
   const int tx = tile - ty * grid_x;
   const float dxl = (float)(tx * kTile) - mx;
@@ -134,13 +142,98 @@ __global__ void __launch_bounds__(kThreads) expand_pairs_kernel(
   const float qmin =
       inside ? 0.0f : fminf(fminf(qx0, qx1), fminf(qy0, qy1));
   const float tau = 2.0f * logf(fmaxf(op, 1e-12f) * 255.0f);
-  const bool hit = qmin <= tau + 1e-3f;
+  return qmin <= tau + 1e-3f;
+}
 
-  tile_out[pos] = hit ? tile : num_tiles;
-  gid_out[pos] = gid[j];
+__global__ void __launch_bounds__(kThreads) expand_pairs_kernel(
+    const int* __restrict__ offsets, const int* __restrict__ base,
+    const int* __restrict__ nx, const int* __restrict__ gid,
+    const float* __restrict__ attrs, const int* __restrict__ total, int n,
+    int p_cap, int grid_x, int num_tiles, int* __restrict__ tile_out,
+    int* __restrict__ gid_out, float* __restrict__ attrs_out,
+    int* __restrict__ hist) {
+  // The block's owners: offset, rect base, rect width, id, attribute rows.
+  __shared__ int s_off[kThreads], s_base[kThreads], s_nx[kThreads],
+      s_gid[kThreads];
+  __shared__ float s_attr[kRows][kThreads];
+  __shared__ int s_j0, s_spill;
+  const int p0 = blockIdx.x * kThreads;
+  const int pos = p0 + threadIdx.x;
+  const int tot = min(*total, p_cap);
+  const size_t p = (size_t)p_cap;
+  if (p0 < tot) {
+    if (threadIdx.x < 32) {
+      const int j = warp_lower_bound(offsets, 0, n, p0 + 1) - 1;
+      if (threadIdx.x == 0) s_j0 = j;
+    }
+    __syncthreads();
+    const int j0 = s_j0;
+    const int last = min(p0 + kThreads, tot) - 1;  // the last live slot
+    const int jt = j0 + threadIdx.x;
+    const int off = jt < n ? offsets[jt] : INT_MAX;
+    s_off[threadIdx.x] = off;
+    const int nw = __syncthreads_count(jt < n && off <= last);
+    if (threadIdx.x < nw) {
+      s_base[threadIdx.x] = base[jt];
+      s_nx[threadIdx.x] = nx[jt];
+      s_gid[threadIdx.x] = gid[jt];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) attrs_out[r * p + pos] = a[r];
-  if (hit) atomicAdd(&hist[tile], 1);
+      for (int r = 0; r < kRows; ++r) {
+        s_attr[r][threadIdx.x] = attrs[(size_t)r * n + jt];
+      }
+    }
+    if (threadIdx.x == 0) {
+      const int after = j0 + kThreads;
+      s_spill = nw == kThreads && after < n && offsets[after] <= last;
+    }
+    __syncthreads();
+    if (pos < tot) {
+      int o, b, w, g;
+      float a[kRows];
+      if (!s_spill) {
+        int lo = 0, hi = nw;  // upper_bound(s_off[0, nw), pos) - 1
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (s_off[mid] <= pos) {
+            lo = mid + 1;
+          } else {
+            hi = mid;
+          }
+        }
+        const int i = lo - 1;
+        o = s_off[i];
+        b = s_base[i];
+        w = s_nx[i];
+        g = s_gid[i];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) a[r] = s_attr[r][i];
+      } else {
+        const int j = owner(offsets, n, pos);
+        o = offsets[j];
+        b = base[j];
+        w = nx[j];
+        g = gid[j];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) a[r] = attrs[(size_t)r * n + j];
+      }
+      const int rank = pos - o;
+      const int q = rank / w;
+      const int tile = b + q * grid_x + (rank - q * w);
+      const bool hit = cull_keep(a, tile, grid_x);
+      tile_out[pos] = hit ? tile : num_tiles;
+      gid_out[pos] = g;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) attrs_out[r * p + pos] = a[r];
+      if (hit) atomicAdd(&hist[tile], 1);
+      return;
+    }
+  }
+  if (pos < p_cap) {  // a padding slot
+    tile_out[pos] = num_tiles;
+    gid_out[pos] = -1;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) attrs_out[r * p + pos] = 0.0f;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) expand_tiles_kernel(
@@ -195,6 +288,19 @@ extern "C" int expand_tiles_launch(const void* offsets, const void* base,
         (int*)tile_out, (int*)gid_out, (int*)hist);
   }
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of K1 (out[0]) and K7 (out[1]), and the threads
+// of a block (out[2]), from the CUDA occupancy calculator.
+extern "C" int expand_pairs_occupancy(int* out) {
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], expand_pairs_kernel, kThreads, 0);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[1], expand_tiles_kernel, kThreads, 0);
+  }
+  out[2] = kThreads;
+  return (int)err;
 }
 
 extern "C" const char* expand_pairs_error(int code) {

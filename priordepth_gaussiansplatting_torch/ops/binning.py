@@ -6,10 +6,12 @@ pair gradients (K5b) and their per-Gaussian sum (K4); the JAX package's
   1. ONE stable sort of the N Gaussians by depth, with empty rects sent to
      the tail (depth inf), so the live prefix has strictly ascending
      exclusive pair offsets.
-  2. K1 (``csrc/expand_pairs.cu``): one pair slot per thread, the owning
-     Gaussian by binary search over those offsets, the tile from its rect,
-     its attribute rows, the exact ellipse-vs-tile cull and a per-tile
-     histogram of the kept pairs.
+  2. K1 (``csrc/expand_pairs.cu``): one pair slot per thread, 256 a
+     block; the block's owning Gaussians found from those offsets (one
+     search for its first slot, :func:`owner_window_plain`) and staged
+     once; per slot the tile from its owner's rect, its attribute rows, the
+     exact ellipse-vs-tile cull and a per-tile histogram of the kept
+     pairs.
   3. ONE stable sort of the pair slots by tile id (culled and padding slots
      carry ``num_tiles`` and sink past every kept pair), which keeps depth
      order within each tile.
@@ -22,7 +24,9 @@ table columns by its Gaussian id (n past num_valid), sorts the key
 (``torch.sort``, stable; its values are the sorted key K4 reads), gathers
 the 10 gradient rows through its permutation (K5b, ``csrc/gather_rows.cu``
 again, without the id row) and sums each Gaussian's contiguous segment
-(K4, ``csrc/segment_reduce.cu``) in f32.
+(K4, ``csrc/segment_reduce.cu``) in float64, rounded once to f32; K4 finds
+the segments in the key itself (:func:`segment_bounds` is the plain form
+of its blocks' ranges).
 
 Pairs beyond ``pair_capacity`` are dropped and counted in
 ``overflow_rect``; kept pairs beyond ``valid_capacity`` fall outside the
@@ -125,6 +129,56 @@ def cull_terms(tile, attrs, grid_x):
                                      torch.minimum(qy0, qy1)))
     tau = 2.0 * torch.log(torch.clamp_min(op, 1e-12) * (1.0 / _ALPHA_MIN))
     return qmin, tau + 1e-3
+
+
+# Threads of a warp, and pair slots of a K1 block (one a thread).
+WARP = 32
+EXPAND_BLOCK = 256
+
+
+def warp_lower_bound_plain(a, lo: int, hi: int, x: int) -> int:
+    """Plain form of the search K1 and K4 run in one warp
+    (``csrc/warp_search.cuh``): the first position in ascending ``a[lo,
+    hi)`` whose value is >= x (hi if none). Each round tests the 32
+    positions lo + l step (step = ceil((hi - lo) / 32)) and keeps the one
+    step after the last test below x."""
+    while lo < hi:
+        step = -(-(hi - lo) // WARP)
+        probes = lo + step * torch.arange(WARP, dtype=torch.int64)
+        probes = probes[probes < hi]
+        c = int((a[probes] < x).sum())
+        if c == 0:
+            hi = lo
+        else:
+            lo, hi = lo + (c - 1) * step + 1, min(lo + c * step, hi)
+    return lo
+
+
+def owner_window_plain(offsets, total, p_cap: int):
+    """Plain form of K1's block partition (``csrc/expand_pairs.cu``): for
+    each block of :data:`EXPAND_BLOCK` slots holding a live slot (below
+    ``min(total, p_cap)``), the owner j0 of its first slot (by the warp's
+    search), the count of owners it stages (the Gaussians from j0 on whose
+    offset is at most the block's last live slot, at most one per slot)
+    and whether they overflow the block's window of :data:`EXPAND_BLOCK`
+    (then the block searches each slot's owner in device memory). Returns
+    three (blocks,) tensors: j0 and count (int64), spill (bool)."""
+    n = offsets.shape[0]
+    tot = min(int(total.reshape(-1)[0]), p_cap)
+    j0s, counts, spills = [], [], []
+    for p0 in range(0, tot, EXPAND_BLOCK):
+        j0 = warp_lower_bound_plain(offsets, 0, n, p0 + 1) - 1
+        last = min(p0 + EXPAND_BLOCK, tot) - 1
+        window = offsets[j0:j0 + EXPAND_BLOCK]
+        count = int((window <= last).sum())
+        after = j0 + EXPAND_BLOCK
+        spills.append(count == EXPAND_BLOCK and after < n
+                      and int(offsets[after]) <= last)
+        j0s.append(j0)
+        counts.append(count)
+    return (torch.tensor(j0s, dtype=torch.int64),
+            torch.tensor(counts, dtype=torch.int64),
+            torch.tensor(spills, dtype=torch.bool))
 
 
 def expand_pairs_plain(offsets, base, nx, gid, attrs, total, p_cap: int,
@@ -254,11 +308,34 @@ def sort_back_rows(d_table, perm):
 
 # --- K4: per-Gaussian reduction of the id-sorted pair gradients --------------
 
-def segment_bounds(key_sorted, num_valid, n: int):
-    """(n + 1,) int32: the first position of each Gaussian id 0..n in the
-    ascending key, clipped to num_valid (the JAX kernel's block bounds, one
-    per Gaussian)."""
-    queries = torch.arange(n + 1, dtype=torch.int32, device=key_sorted.device)
+# K4: key slots a block should span, and the most ids a block owns (its
+# shared-memory tile is (ATTR_ROWS, ids) f32).
+SEGMENT_SLOTS_PER_BLOCK = 4096
+SEGMENT_MAX_IDS = 1024
+
+
+def segment_ids_per_block(n: int, v: int) -> int:
+    """K4's ids per block: the power of two in [32, 1024] at or below
+    ``SEGMENT_SLOTS_PER_BLOCK * n / v``, so that a block of the full scene
+    (~2.6 key slots per Gaussian) owns 1,024 ids and one of the mid scene
+    (~17 per row of its 2^17-row store) 128: on the H100 the fastest of
+    the powers of two on both."""
+    want = SEGMENT_SLOTS_PER_BLOCK * n // max(v, 1)
+    ids = 32
+    while ids * 2 <= min(want, SEGMENT_MAX_IDS):
+        ids *= 2
+    return ids
+
+
+def segment_bounds(key_sorted, num_valid, n: int, ids_per_block: int = 1):
+    """(ceil(n / G) + 1,) int32 with G = `ids_per_block`: the first
+    position of the ids 0, G, 2G, ... and of n in the ascending key,
+    clipped to num_valid. With G = 1, each Gaussian's segment start; with
+    K4's G, the plain form of its blocks' ranges: block b owns the ids [b G,
+    b G + G) and reads the columns [bounds[b], bounds[b + 1])."""
+    queries = torch.arange(0, n + ids_per_block, ids_per_block,
+                           dtype=torch.int32, device=key_sorted.device)
+    queries[-1] = n
     bounds = torch.searchsorted(key_sorted, queries, out_int32=True)
     return torch.clamp_max(bounds, num_valid)
 
@@ -280,7 +357,9 @@ def segment_reduce(d_sorted, key_sorted, num_valid, n: int):
     """K4. Sum per Gaussian of the id-sorted pair rows: d_sorted
     (ATTR_ROWS, v) f32, key_sorted (v,) int32 ascending, num_valid ()
     int32 -> (ATTR_ROWS, n) f32 in original Gaussian order. Positions >=
-    num_valid and keys >= n contribute nothing."""
+    num_valid and keys >= n contribute nothing. The kernel sums in float64
+    and rounds once, as the plain version does, and finds each block's
+    columns in the key itself."""
     if d_sorted.device.type == "cpu":
         return segment_reduce_plain(d_sorted, key_sorted, num_valid, n)
     kernels.check_cuda("segment_reduce", d_sorted=d_sorted,
@@ -291,11 +370,16 @@ def segment_reduce(d_sorted, key_sorted, num_valid, n: int):
                          f"({ATTR_ROWS}, v)")
     if key_sorted.dtype != torch.int32 or key_sorted.shape != (v,):
         raise ValueError("segment_reduce: key_sorted must be int32 (v,)")
-    bounds = segment_bounds(key_sorted, num_valid, n)
+    if num_valid.dtype != torch.int32 or num_valid.numel() != 1:
+        raise ValueError("segment_reduce: num_valid must be one int32")
+    # 16-byte loads need every row and the key to start on 16 bytes.
+    vec = (v % 4 == 0 and d_sorted.data_ptr() % 16 == 0
+           and key_sorted.data_ptr() % 16 == 0)
     out = torch.empty(rows, n, dtype=torch.float32, device=d_sorted.device)
     p, i = kernels.ptr, kernels.i32
-    kernels.launch("segment_reduce", [p, i, p, i, p], d_sorted, v, bounds, n,
-                   out)
+    kernels.launch("segment_reduce", [p, p, i, p, i, i, i, p], d_sorted,
+                   key_sorted, v, num_valid, n,
+                   segment_ids_per_block(n, v), int(vec), out)
     return out
 
 

@@ -123,3 +123,82 @@ def test_expand_pairs_plain_counts_and_order():
     d = proj.depth[g_s[:int(kept.sum())].long()]
     same_tile = t_s[1:int(kept.sum())] == t_s[:int(kept.sum()) - 1]
     assert (d[1:][same_tile] >= d[:-1][same_tile]).all()
+
+
+def _owner_cases():
+    """Depth-ordered rect pair counts (live Gaussians first, zero-count
+    rects at the tail) for K1's owner window, with its pair capacity."""
+    rng = np.random.default_rng(9)
+    return {
+        # one owner spanning 26+ blocks, blocks spanning 200+ owners and
+        # zero-count rects at the tail
+        "long_and_dense": (np.concatenate(
+            [rng.integers(1, 4, 300), [26 * 256 + 77],
+             np.ones(900, np.int64), rng.integers(1, 40, 200),
+             np.zeros(50, np.int64)]), 9000),
+        # the capacity cuts the slots inside a rect (a ragged last block)
+        "ragged_capacity": (np.concatenate(
+            [rng.integers(1, 9, 500), np.zeros(7, np.int64)]), 1234),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_owner_cases()))
+def test_owner_window_plain_matches_searchsorted(case):
+    """K1's block partition (the owner of each block's first slot from the
+    warp's search, then the block's window of owners) gives every live
+    slot the owner ``searchsorted`` gives it, with at most one owner per
+    slot and no block spilling on depth-sorted offsets."""
+    counts, p_cap = _owner_cases()[case]
+    offsets = torch.from_numpy(np.cumsum(counts) - counts).to(torch.int32)
+    total = torch.tensor([int(counts.sum())], dtype=torch.int32)
+    j0, count, spill = pbin.owner_window_plain(offsets, total, p_cap)
+    tot = min(int(total), p_cap)
+    assert j0.shape[0] == -(-tot // pbin.EXPAND_BLOCK)
+    assert not spill.any()
+    assert int(count.min()) >= 1 and int(count.max()) <= pbin.EXPAND_BLOCK
+    pos = torch.arange(tot, dtype=torch.int32)
+    want = torch.searchsorted(offsets, pos, right=True) - 1
+    block = pos.long() // pbin.EXPAND_BLOCK
+    got = torch.empty_like(want)
+    for b in range(j0.shape[0]):
+        window = offsets[j0[b]:j0[b] + count[b]]
+        sel = block == b
+        got[sel] = j0[b] + torch.searchsorted(window, pos[sel],
+                                              right=True) - 1
+    assert torch.equal(got, want)
+    owners_per_block = [int(want[block == b].unique().numel())
+                        for b in range(j0.shape[0])]
+    assert owners_per_block == count.tolist()
+    if case == "long_and_dense":
+        assert max(owners_per_block) >= 200
+        assert int((want == 300).sum()) >= 26 * pbin.EXPAND_BLOCK
+
+
+def test_owner_window_plain_spills_past_one_owner_per_thread():
+    """Offsets that do not ascend strictly (zero-count rects among the
+    live ones, which the depth sort does not produce) can put more owners
+    before a block's last slot than it has slots: the window says so,
+    and the kernel then searches each slot's owner in device memory."""
+    counts = np.concatenate([[5], np.zeros(300, np.int64), [600]])
+    offsets = torch.from_numpy(np.cumsum(counts) - counts).to(torch.int32)
+    total = torch.tensor([605], dtype=torch.int32)
+    j0, count, spill = pbin.owner_window_plain(offsets, total, 1024)
+    assert spill.tolist() == [True, False, False]
+    assert count[0] == pbin.EXPAND_BLOCK and j0.tolist()[1:] == [301, 301]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_warp_lower_bound_plain_matches_searchsorted(seed):
+    """The 32-way search K1 and K4 run in one warp finds the lower bound
+    over any subrange, for values below, inside and above the keys, and on
+    runs of equal keys."""
+    rng = np.random.default_rng(seed)
+    v = int(rng.integers(1, 5000)) if seed else 2_600_000
+    a = torch.from_numpy(np.sort(rng.integers(0, v // 3 + 2, v))).to(
+        torch.int32)
+    for _ in range(20):
+        lo = int(rng.integers(0, v))
+        hi = int(rng.integers(lo, v + 1))
+        x = int(rng.integers(-1, v // 3 + 4))
+        want = lo + int(torch.searchsorted(a[lo:hi], x))
+        assert pbin.warp_lower_bound_plain(a, lo, hi, x) == want

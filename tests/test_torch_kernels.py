@@ -224,6 +224,147 @@ def test_sort_back_and_segment_reduce_kernels_equal_plain(card):
     assert bool(((got - want).abs() <= 1e-5 * scale).all())
 
 
+def _segments(case):
+    """An id-sorted key for K4 with its n and num_valid (int32 numpy)."""
+    rng = np.random.default_rng(13)
+    if case == "lengths":
+        # Segment lengths 1 ... 6,700 (the full scene's tiles) that cross
+        # the kernel's thread (4), warp (128) and pass (1,024) boundaries,
+        # every 7th id and the first 5 and last 7 without pairs, num_valid
+        # in the middle of the 6,700 segment.
+        cycle = [1, 2, 3, 4, 5, 7, 31, 33, 127, 128, 129, 1023, 1024, 1025,
+                 2049, 6700]
+        n = 400
+        lengths = np.array([cycle[i % len(cycle)] for i in range(n)])
+        lengths[::7] = 0
+        lengths[:5] = 0
+        lengths[-7:] = 0
+        key = np.repeat(np.arange(n), lengths)
+        long_id = int(np.flatnonzero(lengths == 6700)[-1])
+        num_valid = int(np.searchsorted(key, long_id)) + 3333
+    else:
+        # Many short segments: blocks of the most ids.
+        n = 200_000
+        key = np.repeat(np.arange(n), rng.integers(0, 4, n))
+        num_valid = key.size - 5
+    return key.astype(np.int32), n, num_valid
+
+
+@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("case", ["lengths", "short"])
+def test_segment_reduce_kernel_edge_cases(card, case, pad):
+    """K4 within 1e-5 x row max of its plain version (float64 sums) and bit
+    for bit across two launches, at segment lengths 1 ... 6,700, with ids
+    without pairs first, between and last, num_valid inside a segment and
+    padding keys == n after it; 16-byte loads (v % 4 == 0) and scalar
+    ones."""
+    key, n, num_valid = _segments(case)
+    v = key.size + 20
+    v += (4 - v % 4) % 4 + pad * 3
+    key = np.concatenate([key, np.full(v - key.size, n, np.int32)])
+    rng = np.random.default_rng(pad)
+    d = torch.from_numpy(rng.standard_normal((10, v), dtype=np.float32))
+    k = torch.from_numpy(key)
+    nv = torch.tensor(num_valid, dtype=torch.int32)
+    want = binning.segment_reduce_plain(d, k, nv, n).to(card)
+    d, k, nv = d.to(card), k.to(card), nv.to(card)
+    before = kernels.launch_counts()["segment_reduce"]
+    got = binning.segment_reduce(d, k, nv, n)
+    again = binning.segment_reduce(d, k, nv, n)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["segment_reduce"] == before + 2
+    assert torch.equal(_bits(got), _bits(again))
+    scale = want.abs().amax(1, keepdim=True)
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    empty = torch.bincount(k[:num_valid].long(), minlength=n + 1)[:n] == 0
+    assert int(empty.sum()) > 0 and float(got[:, empty].abs().max()) == 0.0
+
+
+def _rects(case):
+    """K1's inputs on a 300 x 100 tile grid, built directly: depth-ordered
+    rects (live first, zero-count rects at the tail), random attributes
+    that keep some pairs and cull others, and the pair capacity."""
+    rng = np.random.default_rng(31)
+    grid_x, grid_y = 300, 100
+    if case == "long_and_dense":
+        # a rect 280 tiles wide over 26+ blocks of 256 slots, 1-tile rects
+        # (blocks spanning 200+ owners), then mixed ones; a 1.1x capacity
+        widths = np.concatenate([rng.integers(1, 4, 300), [280],
+                                 np.ones(900, np.int64),
+                                 rng.integers(1, 12, 200)])
+        heights = np.concatenate([rng.integers(1, 3, 300), [24],
+                                  np.ones(900, np.int64),
+                                  rng.integers(1, 6, 200)])
+    else:
+        widths = rng.integers(1, 9, 700)
+        heights = rng.integers(1, 9, 700)
+    if case == "spill":
+        # 300 zero-width rects among the live ones (offsets that do not
+        # ascend strictly): more owners before a block's last slot than
+        # it has threads, so the block searches in device memory.
+        widths[5:305] = 0
+    n_live = widths.size
+    n = n_live + 50
+    x0 = rng.integers(0, grid_x - widths + 1)
+    y0 = rng.integers(0, grid_y - heights + 1)
+    counts = np.concatenate([widths * heights, np.zeros(50, np.int64)])
+    offsets = np.cumsum(counts) - counts
+    total = int(counts.sum())
+    p_cap = total - 999 if case == "ragged" else int(total * 1.1)
+    base = np.concatenate([y0 * grid_x + x0, np.zeros(50, np.int64)])
+    nx = np.concatenate([widths, np.zeros(50, np.int64)])
+    attrs = np.zeros((10, n), np.float32)
+    attrs[0, :n_live] = (x0 + widths * rng.uniform(0, 1, n_live)) * 16
+    attrs[1, :n_live] = (y0 + heights * rng.uniform(0, 1, n_live)) * 16
+    sx = (np.maximum(widths, 1) * 16 / 3) ** -2
+    sy = (heights * 16 / 3) ** -2
+    attrs[2, :n_live] = sx
+    attrs[3, :n_live] = rng.uniform(-0.3, 0.3, n_live) * np.sqrt(sx * sy)
+    attrs[4, :n_live] = sy
+    attrs[5, :n_live] = rng.uniform(0.01, 0.99, n_live)
+    attrs[6:, :n_live] = rng.uniform(0, 1, (4, n_live))
+    i32 = torch.int32
+    return dict(offsets=torch.from_numpy(offsets).to(i32),
+                base=torch.from_numpy(base).to(i32),
+                nx=torch.from_numpy(nx).to(i32),
+                gid=torch.from_numpy(rng.permutation(n)).to(i32),
+                attrs=torch.from_numpy(attrs),
+                total=torch.tensor([total], dtype=i32),
+                p_cap=p_cap, grid_x=grid_x, num_tiles=grid_x * grid_y)
+
+
+@pytest.mark.parametrize("case", ["long_and_dense", "ragged", "spill"])
+def test_expand_pairs_kernel_owner_windows(card, case):
+    """K1 against its plain version where its blocks' owner windows are
+    extreme: one owner over 26+ blocks (a rect 280 tiles wide), blocks of
+    200+ owners, zero-count rects at the tail, a capacity above the total
+    (padding blocks) and below it (a cut rect, a ragged last block), and
+    zero-count rects among the live ones (a window that spills). Ids,
+    attributes and histogram bit for bit; tiles equal except culls within
+    one f32 ulp of the cull limit."""
+    k = _rects(case)
+    want = binning.expand_pairs_plain(**k)
+    k = {a: x.to(card) if isinstance(x, torch.Tensor) else x
+         for a, x in k.items()}
+    got = binning.expand_pairs(**k)
+    torch.cuda.synchronize()
+    tile, gid, attrs, hist = (x.cpu() for x in got)
+    assert torch.equal(gid, want[1])
+    assert torch.equal(_bits(attrs), _bits(want[2]))
+    num_tiles = k["num_tiles"]
+    assert torch.equal(hist, torch.bincount(
+        tile[tile < num_tiles].long(), minlength=num_tiles).to(torch.int32))
+    flips = tile != want[0]
+    assert int(flips.sum()) <= 2
+    if bool(flips.any()):
+        real = torch.where(tile == num_tiles, want[0], tile)[flips]
+        qmin, limit = binning.cull_terms(real, attrs[:, flips], k["grid_x"])
+        ulp = torch.nextafter(limit, torch.full_like(limit, float("inf")))
+        assert bool(((qmin - limit).abs() <= ulp - limit).all())
+    kept = int((tile < num_tiles).sum())
+    assert 0 < kept < min(int(k["total"]), k["p_cap"])
+
+
 def test_rasterize_gradients_on_card_match_cpu(card):
     proj = _projected(card)
     bg = torch.tensor([0.1, 0.2, 0.3], device=card)

@@ -43,9 +43,11 @@ def test_the_key_follows_the_source_and_the_flags(csrc, monkeypatch):
 
 
 def test_every_source_names_its_included_headers():
-    for name in ("expand_pairs", "gather_rows", "segment_reduce"):
+    assert build._sources(build.CSRC / "gather_rows.cu", []) == [
+        build.CSRC / "gather_rows.cu"]
+    for name in ("expand_pairs", "segment_reduce"):
         assert build._sources(build.CSRC / f"{name}.cu", []) == [
-            build.CSRC / f"{name}.cu"]
+            build.CSRC / f"{name}.cu", build.CSRC / "warp_search.cuh"]
     for name in COMPOSITORS:
         assert build._sources(build.CSRC / f"{name}.cu", []) == [
             build.CSRC / f"{name}.cu", build.CSRC / "composite_eval.cuh"]

@@ -212,3 +212,98 @@ def test_pair_grads_to_gaussians_matches_jax_bin_sorted_bwd(v):
     for want in (want_j, truth):
         np.testing.assert_allclose(got, want, atol=2e-4)
     assert np.abs(got[:, n - 7:]).max() == 0.0
+
+
+def _k4_case(num_tiles=6700):
+    """K4's edge cases in one id-sorted key: one Gaussian covering every
+    tile of the full scene's frame (6,700 pairs), Gaussians with no pairs
+    (the first ids, ids between, the last ids), num_valid cutting a
+    segment, and padding keys == n past it."""
+    rng = np.random.default_rng(21)
+    n = 700
+    counts = np.zeros(n, np.int64)
+    live = rng.choice(np.arange(3, n - 5), 300, replace=False)
+    counts[live] = rng.integers(1, 40, 300)
+    counts[live[0]] = num_tiles
+    key = np.repeat(np.arange(n), counts)
+    cut = int(np.searchsorted(key, live.max())) + 3  # inside its segment
+    assert key[cut - 1] == key[cut] == live.max()
+    v = key.size + 37
+    key = np.concatenate([key, np.full(37, n)]).astype(np.int32)
+    d = rng.standard_normal((pbin.ATTR_ROWS, v)).astype(np.float32)
+    return d, key, cut, n
+
+
+def test_segment_reduce_plain_edge_cases_match_jax_and_numpy():
+    """K4's plain version, and the binning's backward through it, against
+    JAX's segment_reduce (interpret mode) and a float64 numpy sum; the
+    Gaussians without pairs and those cut off by num_valid get exactly 0."""
+    d, key, cut, n = _k4_case()
+    truth = np.zeros((pbin.ATTR_ROWS, n))
+    np.add.at(truth.T, key[:cut], d[:, :cut].T.astype(np.float64))
+    num_valid = torch.tensor(cut, dtype=torch.int32)
+    got = pbin.segment_reduce_plain(torch.from_numpy(d), torch.from_numpy(key),
+                                    num_valid, n).numpy()
+    want_j = np.asarray(jbin.segment_reduce(
+        jnp.asarray(d), jnp.asarray(key), jnp.int32(cut), n, interpret=True))
+    scale = np.abs(truth).max(1, keepdims=True)
+    assert np.abs(got - truth).max() <= 1e-6 * scale.max()
+    assert (np.abs(got - want_j) <= 1e-5 * scale).all()
+    empty = np.bincount(key[:cut], minlength=n + 1)[:n] == 0
+    assert empty.sum() > 300 and not got[:, empty].any()
+
+    # The backward from a tile-ordered table: the valid pairs shuffled, any
+    # ids past num_valid, and ones in padding columns past v; neither of
+    # the last two may reach a Gaussian.
+    rng = np.random.default_rng(22)
+    order = rng.permutation(cut)
+    gid_tiles = np.concatenate([key[:cut][order], rng.integers(
+        0, n, key.size - cut)]).astype(np.int32)
+    table = np.concatenate([d[:, order], d[:, cut:],
+                            np.ones((pbin.ATTR_ROWS, 64), np.float32)],
+                           axis=1)
+    got = pbin.pair_grads_to_gaussians(
+        torch.from_numpy(table), torch.from_numpy(gid_tiles), num_valid,
+        n).numpy()
+    assert np.abs(got - truth).max() <= 1e-6 * scale.max()
+    assert not got[:, empty].any()
+
+
+@pytest.mark.parametrize("case", ["random", "one_long_segment"])
+def test_segment_bounds_is_k4_block_partition(case):
+    """The plain form of K4's partition (block b owns the ids [b G, b G +
+    G) and reads the columns [bounds[b], bounds[b + 1])) against a direct
+    enumeration, at K4's ids per block and at 1 (every Gaussian's segment
+    start): the blocks' columns are exactly the positions below num_valid
+    whose key is one of their ids, in order, on random keys and on one
+    segment longer than any of the kernel's passes of 1,024 columns."""
+    if case == "random":
+        rng = np.random.default_rng(5)
+        n, v = 3000, 20_000
+        key = np.sort(rng.integers(0, n + 1, v)).astype(np.int32)
+        num_valid = v - 777
+    else:
+        d, key, num_valid, n = _k4_case()
+        v = key.size
+        assert np.bincount(key).max() == 6700
+    pos = np.arange(v)
+    for ids in (1, 32, pbin.segment_ids_per_block(n, v), 1024):
+        bounds = pbin.segment_bounds(torch.from_numpy(key),
+                                     torch.tensor(num_valid), n, ids).numpy()
+        nb = -(-n // ids)
+        assert bounds.shape == (nb + 1,)
+        for b in range(nb):
+            mine = pos[(pos < num_valid) & (key >= b * ids)
+                       & (key < min(b * ids + ids, n))]
+            np.testing.assert_array_equal(
+                mine, np.arange(bounds[b], bounds[b + 1]))
+        assert bounds[-1] == int(((pos < num_valid) & (key < n)).sum())
+
+
+def test_segment_ids_per_block():
+    """K4's ids per block: a power of two in [32, 1024], 1,024 for the full
+    scene's ~2.6 key slots per Gaussian, 128 for the mid scene's ~17."""
+    assert pbin.segment_ids_per_block(1_000_000, 2_621_440) == 1024
+    assert pbin.segment_ids_per_block(131_072, 2_228_224) == 128
+    assert pbin.segment_ids_per_block(10, 10**7) == 32
+    assert pbin.segment_ids_per_block(10**6, 1) == pbin.SEGMENT_MAX_IDS
