@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # one card, every phase below
     python3 chip_smoke.py --ranks 4  # only the multi-rank phase, 4 cards
+    python3 chip_smoke.py --turns DIR  # only K7 and K1 against DIR's
 
 Builds the port's CUDA kernels from ``priordepth_gaussiansplatting_torch/
 csrc/`` (one nvcc per source, in parallel), then runs, printing one JSON
@@ -55,8 +56,11 @@ line per phase:
   9. bin: K7 (``ops.binning.expand_tiles``) through ``bin_gaussians`` on
      view 0 of the full scene with P = 2^22, the launch counts of that run;
      its slots and histogram against the plain version bit for bit, the
-     TileBinning against the plain pipeline's, and a rect 256 tiles wide
-     (a 4096-pixel-wide camera) against a direct enumeration;
+     TileBinning against the plain pipeline's, a rect 256 tiles wide (a
+     4096-pixel-wide camera) against a direct enumeration, and a case
+     whose blocks' owners reach past K7's window (they search in device
+     memory) bit for bit; the blocks that spill on both scenes under K7's
+     window and under K1's; K7's time queued and unqueued;
  10. probe: ``python -m priordepth_gaussiansplatting_torch.perf_probe
      1000000 1600 1066`` (stage times; K7 launched once per bin+sort call);
  11. train_cli: ``python -m priordepth_gaussiansplatting_torch.train`` on a
@@ -70,6 +74,11 @@ line per phase:
  12. kernels: one object per kernel (the line before the card's line).
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.
+
+With ``--turns DIR`` it builds the kernels and runs one phase, turns: K7
+and K1 of this checkout in turns with those built from another checkout's
+``csrc/`` (DIR, e.g. the parent commit unpacked with ``git archive``), on
+one card, each checked against its plain version and timed queued.
 
 With ``--ranks N`` it builds the kernels and runs one phase, multi_rank:
 N processes, one per card, in an NCCL group (parallel/mesh.py::spawn). On
@@ -547,6 +556,14 @@ class Smoke:
                 occupancy[label] = dict(threads_per_block=out[2],
                                         blocks_per_sm=blocks,
                                         warps_per_sm=blocks * out[2] // 32)
+        # K7 runs persistent blocks: its blocks per SM, grid, dynamic shared
+        # memory (the histogram) at the full scene's shape.
+        gx, gy = self.binning.grid_shape(FULL_W, FULL_H)
+        shape = self.binning.expand_tiles_grid(BIN_P, gx * gy)
+        assert shape["blocks_per_sm"] >= 1 and shape["shared_hist"], shape
+        occupancy["expand_tiles_full_scene"] = dict(
+            shape, threads_per_block=256,
+            warps_per_sm=shape["blocks_per_sm"] * 8)
         # The port switches TF32 off when it is imported: the projection's
         # products and SSIM's convolutions run in true f32.
         tf32 = {"matmul": t.backends.cuda.matmul.allow_tf32,
@@ -1733,11 +1750,7 @@ class Smoke:
         # A rect 256 tiles wide: one large Gaussian before a 4096-pixel-wide
         # camera, among small ones (most of them above or below the view:
         # zero-count rects in front of the camera).
-        wg = T.random_gaussians(7, WIDE_N, extent=1.0,
-                                scale_range=(0.001, 0.004))
-        wg["means"][0] = 0.0
-        wg["scales"][0] = 0.6
-        wg["opacities"][0] = 0.9
+        wg = T.wide_gaussians(WIDE_N)
         wcam = T.look_at_camera(FULL_EYES[0], width=WIDE_W, height=WIDE_H,
                                 device=self.dev)
         with t.no_grad():
@@ -1767,11 +1780,39 @@ class Smoke:
         assert np.array_equal((wbin.tile_end - wbin.tile_start).cpu().numpy(),
                               counts_t)
 
+        # K7's owner windows: the blocks that search in device memory, on
+        # both scenes, under K7's window and under K1's one-chunk window of
+        # 256 slots; and a spill case on the card, bit for bit.
+        windows = {}
+        for scene, inp, cap, tiles in (("full", x, BIN_P, num_tiles),
+                                       ("wide", wx, wp, wgx * wgy)):
+            grid = b.expand_tiles_grid(cap, tiles)["grid"]
+            for label, part in (("k7", (b.TILES_STEP, b.TILES_CHUNKS,
+                                         grid)), ("k1_window", ())):
+                spill = b.owner_window_plain(inp["offsets"], inp["total"],
+                                             cap, *part)[2]
+                windows[f"{scene}_{label}"] = [int(spill.sum()),
+                                               int(spill.numel())]
+        assert windows["full_k7"][0] == windows["wide_k7"][0] == 0, windows
+        case = {a: v.to(self.dev) if isinstance(v, t.Tensor) else v
+                for a, v in T.tile_window_cases()["spill"].items()}
+        spill = b.owner_window_plain(
+            case["offsets"], case["total"], case["p_cap"], b.TILES_STEP,
+            b.TILES_CHUNKS,
+            b.expand_tiles_grid(case["p_cap"], case["num_tiles"])["grid"])[2]
+        windows["spill_case_k7"] = [int(spill.sum()), int(spill.numel())]
+        assert windows["spill_case_k7"][0] > 0, windows
+        for name, a, w in zip(("tile", "gid", "hist"), b.expand_tiles(**case),
+                              b.expand_tiles_plain(**case)):
+            assert bits_equal(t, a, w), f"K7 spill case: {name} differs"
+
         # Times (CUDA events) at the path's shapes, and the least time: the
         # slots' two int32 writes, the N rows' offset, base, width and id
-        # reads, the histogram.
+        # reads, the histogram. Queued: K7 runs shorter than its wrapper's
+        # host time (the unqueued time is the host's pace).
         n = FULL_N
-        ms = cuda_ms(t, lambda: b.expand_tiles(*args))
+        ms = cuda_ms(t, lambda: b.expand_tiles(*args), queued=True)
+        unqueued_ms = cuda_ms(t, lambda: b.expand_tiles(*args))
         plain_ms = cuda_ms(t, lambda: b.expand_tiles_plain(*args), reps=3)
         bin_ms = cuda_ms(t, lambda: b.bin_gaussians(proj, FULL_W, FULL_H,
                                                      BIN_P))
@@ -1788,8 +1829,112 @@ class Smoke:
              wide=dict(width=WIDE_W, height=WIDE_H, n=WIDE_N,
                        max_rect_tiles=int(nx.max()), pairs=total,
                        zero_count_rects=int((counts == 0).sum())),
-             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+             spilling_blocks=windows, ms=ms, unqueued_ms=unqueued_ms,
+             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
              bin_gaussians_ms=bin_ms)
+
+    def phase_turns(self, other: str):
+        """``--turns DIR``: K7 and K1 (``csrc/expand_pairs.cu``) of this
+        checkout in turns with those built from DIR's ``csrc/`` (another
+        checkout whose two entry points take the same arguments): other /
+        this / this / other, on view 0 of the full scene (K7 at P = 2^22,
+        K1 at the three views' capacity), each side's outputs against the
+        plain versions, its registers and blocks per SM, and queued
+        CUDA-event times (K7 also unqueued). This side's K7 is timed
+        through its wrapper; the other's through the same launch with the
+        histogram zeroed first, as its wrapper did (a memset launch)."""
+        import pathlib
+        t, T, b = self.torch, self.testing, self.binning
+        from priordepth_gaussiansplatting_torch.kernels import build
+        g = T.random_gaussians(0, FULL_N, extent=1.0,
+                               scale_range=(0.001, 0.004))
+        state = self.state(g)
+        cams = [T.look_at_camera(e, width=FULL_W, height=FULL_H,
+                                 device=self.dev) for e in FULL_EYES]
+        p_cap, _ = self.view_capacities(state, cams)
+        with t.no_grad():
+            proj = self.project(cams[0], state)
+        grid_x, grid_y = b.grid_shape(FULL_W, FULL_H)
+        num_tiles = grid_x * grid_y
+        x = b.tile_inputs(proj, FULL_W, FULL_H, BIN_P)
+        k7 = (x["offsets"], x["base"], x["nx"], x["gid"], x["total"], BIN_P,
+              grid_x, num_tiles)
+        k1 = dict(b.depth_sorted_rects(proj, FULL_W, FULL_H), p_cap=p_cap,
+                  grid_x=grid_x, num_tiles=num_tiles)
+        want7 = b.expand_tiles_plain(*k7)
+        want1 = b.expand_pairs_plain(**k1)
+        sides = {"this": (build.CSRC, build.BUILD_DIR),
+                 "other": (pathlib.Path(other).resolve()
+                           / "priordepth_gaussiansplatting_torch" / "csrc",
+                           build.BUILD_DIR.parent / "kernels_other")}
+
+        def zeroed_k7(*args):
+            """K7 with the histogram zeroed before the launch, as the
+            wrapper did before K7 zeroed it itself (the other side's
+            contract; this side's kernel writes every bin all the same)."""
+            p_cap, num = args[5], args[7]
+            out = [t.empty(p_cap, dtype=t.int32, device=self.dev)
+                   for _ in range(2)]
+            hist = t.zeros(num + num % 2 + 2, dtype=t.int32, device=self.dev)
+            ptr, i32 = self.kernels.ptr, self.kernels.i32
+            self.kernels.launch(
+                "expand_pairs", [ptr] * 5 + [i32] * 4 + [ptr] * 3, *args[:5],
+                args[0].shape[0], *args[5:], *out, hist,
+                entry="expand_tiles")
+            return out[0], out[1], hist[:num]
+        rows = []
+        for side in ("other", "this", "this", "other"):
+            csrc, build_dir = sides[side]
+            k7_call = b.expand_tiles if side == "this" else zeroed_k7
+            with swapped([(build, "CSRC", csrc),
+                          (build, "BUILD_DIR", build_dir)]):
+                build._loaded.clear()
+                got7 = k7_call(*k7)
+                got1 = b.expand_pairs(**k1)
+                t.cuda.synchronize()
+                for name, a, w in zip(("tile", "gid", "hist"), got7, want7):
+                    assert bits_equal(t, a, w), f"K7 ({side}) {name} differs"
+                assert bits_equal(t, got1[1], want1[1]), f"K1 ({side}) ids"
+                assert bits_equal(t, got1[2], want1[2]), f"K1 ({side}) rows"
+                flips = int((got1[0] != want1[0]).sum())
+                assert flips <= 1e-5 * int(k1["total"]), (side, flips)
+                out = (ctypes.c_int * 3)()
+                rc = build.entry("expand_pairs", "expand_pairs_occupancy",
+                                 [ctypes.POINTER(ctypes.c_int)])(out)
+                assert rc == 0, rc
+                ptxas = [ln.split("ptxas info    :")[-1].strip()
+                         for ln in build.ptxas_report(
+                             "expand_pairs").splitlines() if "Used" in ln]
+                lib = build.load("expand_pairs")
+                if hasattr(lib, "expand_tiles_shape"):  # K7's persistent grid
+                    shape = (ctypes.c_int * 4)()
+                    rc = build.entry("expand_pairs", "expand_tiles_shape",
+                                     [ctypes.c_int, ctypes.c_int,
+                                      ctypes.POINTER(ctypes.c_int)])(
+                                          BIN_P, num_tiles, shape)
+                    assert rc == 0, rc
+                    out[1] = shape[0]
+                rows.append(dict(
+                    side=side,
+                    expand_tiles_ms=cuda_ms(t, lambda: k7_call(*k7),
+                                            queued=True),
+                    expand_pairs_ms=cuda_ms(
+                        t, lambda: b.expand_pairs(**k1), queued=True),
+                    expand_tiles_unqueued_ms=cuda_ms(
+                        t, lambda: k7_call(*k7)),
+                    k1_cull_flips=flips,
+                    blocks_per_sm={"expand_pairs": out[0],
+                                   "expand_tiles": out[1]},
+                    ptxas=ptxas))
+            build._loaded.clear()
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip()
+        self.smi = smi
+        emit("turns", ok=True, other=other, nvidia_smi=smi, n=FULL_N,
+             width=FULL_W, height=FULL_H, k7_p_cap=BIN_P, k1_p_cap=p_cap,
+             pairs=int(x["total"]), turns=rows)
 
     def run_cmd(self, cmd, timeout: int) -> str:
         """Run `cmd` from the repo root; its stdout, or raise with the end
@@ -1943,6 +2088,10 @@ def main(argv=None) -> int:
         "--ranks", type=int, default=1,
         help="with N > 1, run only the multi-rank phase: N processes, one "
              "per card, in an NCCL group (needs N cards)")
+    parser.add_argument(
+        "--turns", metavar="DIR",
+        help="run only the turns phase: K7 and K1 in turns against those "
+             "built from DIR's priordepth_gaussiansplatting_torch/csrc/")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1956,6 +2105,9 @@ def main(argv=None) -> int:
     if args.ranks > 1:
         return main_multi(args.ranks, build_wall)
     smoke = Smoke()
+    if args.turns:
+        smoke.phase_turns(args.turns)
+        return finish(smoke.smi)
     smoke.phase_device(build_seconds, build_wall)
     smoke.phase_mid()
     smoke.phase_full()
@@ -1968,7 +2120,13 @@ def main(argv=None) -> int:
     smoke.phase_probe()
     smoke.phase_train_cli()
     smoke.kernels_line()
-    print(smoke.smi, flush=True)
+    return finish(smoke.smi)
+
+
+def finish(smi: str) -> int:
+    """The card's name and power limit, then the last line."""
+    import torch
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -2000,11 +2158,7 @@ def main_multi(ranks: int, build_wall: float) -> int:
                                   for r in per_rank]
                           for label in per_rank[0]["grids"]},
          single_step_ms_by_rank=[r["single_step_ms"] for r in per_rank])
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return finish(smi)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-// A lower-bound search by one warp, shared by K1 (csrc/expand_pairs.cu,
-// the owner of a block's first pair slot) and K4 (csrc/segment_reduce.cu,
-// the columns a block owns). Its plain form is
+// A lower-bound search by one warp, shared by K1 and K7
+// (csrc/expand_pairs.cu, the owner of a block's first pair slot) and K4
+// (csrc/segment_reduce.cu, the columns a block owns). Its plain form is
 // ops/binning.py::warp_lower_bound_plain.
 #pragma once
 

@@ -8,10 +8,10 @@ pair gradients (K5b) and their per-Gaussian sum (K4); the JAX package's
      exclusive pair offsets.
   2. K1 (``csrc/expand_pairs.cu``): one pair slot per thread, 256 a
      block; the block's owning Gaussians found from those offsets (one
-     search for its first slot, :func:`owner_window_plain`) and staged
-     once; per slot the tile from its owner's rect, its attribute rows, the
-     exact ellipse-vs-tile cull and a per-tile histogram of the kept
-     pairs.
+     search for its first slot, then the window of
+     :func:`owner_window_plain`) and staged once; per slot the tile from
+     its owner's rect, its attribute rows, the exact ellipse-vs-tile cull
+     and a per-tile histogram of the kept pairs.
   3. ONE stable sort of the pair slots by tile id (culled and padding slots
      carry ``num_tiles`` and sink past every kept pair), which keeps depth
      order within each tile.
@@ -35,9 +35,12 @@ clamped tile ranges and are counted in ``overflow_valid``.
 :func:`bin_gaussians` is the JAX package's first-round binning (the stage
 probe's "bin+sort"): a stable depth argsort, K7 (``expand_tiles``, the
 second entry point of ``csrc/expand_pairs.cu``: every pair of each
-Gaussian's rect, no attributes and no cull, with the tile histogram), the
-tile ranges from the histogram, and one stable sort of the (tile, Gaussian)
-pairs by tile. It returns a :class:`TileBinning`.
+Gaussian's rect, no attributes and no cull, with the tile histogram;
+persistent blocks, each taking its share of the slots in steps of 1,024,
+four a thread, with owners staged from a window that skips the zero-count
+rects among them; see :func:`window_steps`), the tile ranges from the
+histogram, and one stable sort of the (tile, Gaussian) pairs by tile. It
+returns a :class:`TileBinning`.
 
 Each kernel wrapper takes its plain PyTorch version for tensors on the CPU
 and launches its kernel for tensors on the card; there is no fallback.
@@ -131,13 +134,17 @@ def cull_terms(tile, attrs, grid_x):
     return qmin, tau + 1e-3
 
 
-# Threads of a warp, and pair slots of a K1 block (one a thread).
+# Threads of a warp, and of a K1 or K7 block (K1: one pair slot each); the
+# slots of a K7 block's step and the most chunks of EXPAND_BLOCK offsets
+# its window reads.
 WARP = 32
 EXPAND_BLOCK = 256
+TILES_STEP = 1024
+TILES_CHUNKS = 8
 
 
 def warp_lower_bound_plain(a, lo: int, hi: int, x: int) -> int:
-    """Plain form of the search K1 and K4 run in one warp
+    """Plain form of the search K1, K4 and K7 run in one warp
     (``csrc/warp_search.cuh``): the first position in ascending ``a[lo,
     hi)`` whose value is >= x (hi if none). Each round tests the 32
     positions lo + l step (step = ceil((hi - lo) / 32)) and keeps the one
@@ -154,31 +161,52 @@ def warp_lower_bound_plain(a, lo: int, hi: int, x: int) -> int:
     return lo
 
 
-def owner_window_plain(offsets, total, p_cap: int):
-    """Plain form of K1's block partition (``csrc/expand_pairs.cu``): for
-    each block of :data:`EXPAND_BLOCK` slots holding a live slot (below
-    ``min(total, p_cap)``), the owner j0 of its first slot (by the warp's
-    search), the count of owners it stages (the Gaussians from j0 on whose
-    offset is at most the block's last live slot, at most one per slot)
-    and whether they overflow the block's window of :data:`EXPAND_BLOCK`
-    (then the block searches each slot's owner in device memory). Returns
-    three (blocks,) tensors: j0 and count (int64), spill (bool)."""
-    n = offsets.shape[0]
+def window_steps(total, p_cap: int, slots: int = EXPAND_BLOCK,
+                 grid: int | None = None):
+    """The slot ranges whose owners a block stages, [p0, last] for each, as
+    two int64 tensors: K1's blocks of `slots` from 0 (grid None); or K7's
+    persistent blocks (``csrc/expand_pairs.cu``): of `grid` blocks, block b
+    takes the whole quads of four slots [Q b / grid, Q (b + 1) / grid) of
+    the Q quads below the total and stages them in steps of `slots`."""
     tot = min(int(total.reshape(-1)[0]), p_cap)
-    j0s, counts, spills = [], [], []
-    for p0 in range(0, tot, EXPAND_BLOCK):
-        j0 = warp_lower_bound_plain(offsets, 0, n, p0 + 1) - 1
-        last = min(p0 + EXPAND_BLOCK, tot) - 1
-        window = offsets[j0:j0 + EXPAND_BLOCK]
-        count = int((window <= last).sum())
-        after = j0 + EXPAND_BLOCK
-        spills.append(count == EXPAND_BLOCK and after < n
-                      and int(offsets[after]) <= last)
-        j0s.append(j0)
-        counts.append(count)
-    return (torch.tensor(j0s, dtype=torch.int64),
-            torch.tensor(counts, dtype=torch.int64),
-            torch.tensor(spills, dtype=torch.bool))
+    if grid is None:
+        p0 = torch.arange(0, max(tot, 0), slots)
+        return p0, torch.clamp_max(p0 + slots, tot) - 1
+    quads = -(-tot // 4)
+    starts, lasts = [], []
+    for b in range(grid):
+        start, end = 4 * (quads * b // grid), 4 * (quads * (b + 1) // grid)
+        for p0 in range(start, end, slots):
+            starts.append(p0)
+            lasts.append(min(p0 + slots, end, tot) - 1)
+    return (torch.tensor(starts, dtype=torch.int64),
+            torch.tensor(lasts, dtype=torch.int64))
+
+
+def owner_window_plain(offsets, total, p_cap: int, slots: int = EXPAND_BLOCK,
+                       chunks: int = 1, grid: int | None = None):
+    """Plain form of the owner window of K1 and K7 (``csrc/expand_pairs.cu``)
+    over ascending offsets (equal runs allowed): for each range of slots a
+    block stages (:func:`window_steps`), the owner j0 of its first slot
+    (the warp's search for the first offset above it, less one), the count
+    of owners it stages (the entries from j0 on that end a run of equal
+    offsets and lie at or below its last slot: at most one per slot), and
+    whether those reach past `chunks` chunks of :data:`EXPAND_BLOCK`
+    entries from j0 (then the block searches each slot's owner in device
+    memory). K1: the defaults; K7: :data:`TILES_STEP` slots,
+    :data:`TILES_CHUNKS` chunks and its grid (:func:`expand_tiles_grid`).
+    Returns three tensors, one entry a range: j0 and count (int64), spill
+    (bool)."""
+    dev = offsets.device
+    off = offsets.long()
+    p0, last = (x.to(dev) for x in window_steps(total, p_cap, slots, grid))
+    j0 = torch.searchsorted(off, p0, right=True) - 1
+    jl = torch.searchsorted(off, last, right=True) - 1  # the last slot's
+    ends = torch.ones_like(off)
+    ends[:-1] = (off[1:] > off[:-1]).long()
+    before = torch.cumsum(ends, 0) - ends  # run ends before each entry
+    return (j0, before[jl] - before[j0] + 1,
+            jl - j0 >= chunks * EXPAND_BLOCK)
 
 
 def expand_pairs_plain(offsets, base, nx, gid, attrs, total, p_cap: int,
@@ -537,7 +565,7 @@ def expand_tiles(offsets, base, nx, gid, total, p_cap: int, grid_x: int,
     Gaussian id (int32, (N,)); total pairs (1,) int32. Returns, per pair
     slot, tile id (int32, (p_cap,); num_tiles past the total) and Gaussian
     id (-1 past the total), and the per-tile pair histogram (num_tiles,)
-    int32."""
+    int32, a view of the launch's buffer. One launch, no memset."""
     if offsets.device.type == "cpu":
         return expand_tiles_plain(offsets, base, nx, gid, total, p_cap,
                                   grid_x, num_tiles)
@@ -550,13 +578,33 @@ def expand_tiles(offsets, base, nx, gid, total, p_cap: int, grid_x: int,
     dev = offsets.device
     tile_out = torch.empty(p_cap, dtype=torch.int32, device=dev)
     gid_out = torch.empty(p_cap, dtype=torch.int32, device=dev)
-    hist = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
+    # No memset: the kernel zeroes the histogram, and the two words after
+    # it (from an even index) carry its launch's flag.
+    hist = torch.empty(num_tiles + num_tiles % 2 + 2, dtype=torch.int32,
+                       device=dev)
     p, i = kernels.ptr, kernels.i32
     kernels.launch("expand_pairs", [p] * 5 + [i] * 4 + [p] * 3,
                    offsets, base, nx, gid, total, offsets.shape[0], p_cap,
                    grid_x, num_tiles, tile_out, gid_out, hist,
                    entry="expand_tiles")
-    return tile_out, gid_out, hist
+    return tile_out, gid_out, hist[:num_tiles]
+
+
+def expand_tiles_grid(p_cap: int, num_tiles: int) -> dict:
+    """K7's launch on the current card for `p_cap` slots over `num_tiles`
+    tiles: blocks per SM, its grid of persistent blocks, the bytes of its
+    shared histogram and whether it keeps one (else its atomics go to the
+    histogram in device memory)."""
+    import ctypes
+    out = (ctypes.c_int * 4)()
+    rc = kernels.build.entry("expand_pairs", "expand_tiles_shape",
+                             [kernels.i32, kernels.i32,
+                              ctypes.POINTER(ctypes.c_int)])(p_cap, num_tiles,
+                                                             out)
+    if rc != 0:
+        raise RuntimeError(f"expand_tiles_shape failed ({rc})")
+    return dict(blocks_per_sm=out[0], grid=out[1], shared_hist_bytes=out[2],
+                shared_hist=bool(out[3]))
 
 
 def tile_inputs(proj: ProjectedGaussians, width: int, height: int,

@@ -67,3 +67,100 @@ def enumerate_slots(proj, width: int, height: int) -> np.ndarray:
              for ty in range(ymin[j], ymax[j])
              for tx in range(xmin[j], xmax[j])]
     return np.array(slots, dtype=np.int64).reshape(-1, 2)
+
+
+def wide_gaussians(n: int = 2000) -> dict:
+    """The chip smoke's wide scene (phase ``bin``): ``random_gaussians(7,
+    n)`` at scales 0.001-0.004 with Gaussian 0 moved to the origin at scale
+    0.6 and opacity 0.9. Before a 4096x256 camera at (0, 0, -2.5) its rect
+    spans all 256 tile columns, and most of the small ones lie above or
+    below the view: zero-count rects in front of the camera, between the
+    live ones in depth order."""
+    g = random_gaussians(7, n, extent=1.0, scale_range=(0.001, 0.004))
+    g["means"][0] = 0.0
+    g["scales"][0] = 0.6
+    g["opacities"][0] = 0.9
+    return g
+
+
+def _tile_inputs(rng, widths, heights, p_cap: int, grid=(300, 100)) -> dict:
+    """K7's inputs for depth-ordered rects of the given sizes (a zero width
+    or height is a zero-count rect) at random places on the tile grid."""
+    import torch
+    grid_x, grid_y = grid
+    counts = widths * heights
+    incl = np.cumsum(counts)
+    x0 = rng.integers(0, grid_x - widths + 1)
+    y0 = rng.integers(0, grid_y - heights + 1)
+    i32 = torch.int32
+    return dict(
+        offsets=torch.from_numpy(np.minimum(incl - counts, p_cap)).to(i32),
+        base=torch.from_numpy(y0 * grid_x + x0).to(i32),
+        nx=torch.from_numpy(widths).to(i32),
+        gid=torch.from_numpy(rng.permutation(widths.size)).to(i32),
+        total=torch.tensor([min(int(incl[-1]), p_cap)], dtype=i32),
+        p_cap=p_cap, grid_x=grid_x, num_tiles=grid_x * grid_y)
+
+
+def tile_window_cases(grid_y: int = 100) -> dict:
+    """K7's inputs (``ops/binning.py::expand_tiles``) built directly on a
+    300 x `grid_y` tile grid (at least 34 rows) at the extremes of its owner
+    window (``owner_window_plain`` with K7's partition), as CPU tensors:
+
+    * zero_runs: 1-9 x 1-9 rects with runs of zero-count rects between
+      them (zero width, or zero height with a width), 0-2 long mostly and
+      1-300 long one time in ten, zero-count rects at the tail, padding
+      slots;
+    * clamped_tail: the capacity, a multiple of the block, below the total
+      (the tail's offsets clamped to it);
+    * ragged_capacity: a capacity that is a multiple neither of the block
+      nor of a thread's four slots, below the total;
+    * wide_rect: a rect 300 tiles wide and 30 high (9,000 slots, one owner
+      over 9+ blocks) among small ones;
+    * dense: 1 x 1 rects each after a zero-count one (blocks of 1,024
+      owners over 2,047 entries);
+    * empty: no pair at all (total 0);
+    * spill: a block whose owners span exactly the window's 2,048 entries,
+      one whose owners span one entry more, and later a run of 5,000
+      zero-count rects: the last two search in device memory.
+    """
+    rng = np.random.default_rng(41)
+    i64 = np.int64
+
+    def interleaved(n_live, run_hi, p_long=1.0):
+        parts = []
+        for _ in range(n_live):
+            run = int(rng.integers(1, run_hi + 1) if rng.random() < p_long
+                      else rng.integers(0, 3))
+            w = rng.integers(0, 9, run) * (rng.random(run) < 0.5)
+            parts.append(np.stack([w, np.where(w > 0, 0, 3)]))
+            parts.append(rng.integers(1, 10, (2, 1)))
+        return np.concatenate(parts, axis=1).astype(i64)
+
+    def rects(*blocks):
+        wh = np.concatenate(blocks, axis=1).astype(i64)
+        return wh[0], wh[1]
+
+    def ones(k):
+        return np.ones((2, k), i64)
+
+    def zeros(k):
+        return np.zeros((2, k), i64)
+
+    cases = {}
+    w, h = rects(interleaved(800, 300, 0.1), zeros(40))
+    cases["zero_runs"] = (w, h, int((w * h).sum()) + 1501)
+    w, h = rects(interleaved(1500, 6), zeros(10))
+    cases["clamped_tail"] = (w, h, 1024 * (int((w * h).sum()) // 1024 - 2))
+    cases["ragged_capacity"] = (w, h, (int((w * h).sum()) - 777) // 4 * 4 - 1)
+    w, h = rects(interleaved(300, 3), [[300], [30]], interleaved(300, 3))
+    cases["wide_rect"] = (w, h, int((w * h).sum()) + 1024)
+    w, h = rects(*[np.array([[0, 1], [5, 1]])] * 3000, zeros(3))
+    cases["dense"] = (w, h, int((w * h).sum()) + 101)
+    cases["empty"] = (np.zeros(500, i64), np.zeros(500, i64), 2048)
+    w, h = rects(ones(1), zeros(2046), [[31], [33]], ones(1), zeros(2047),
+                 [[31], [33]], interleaved(200, 4), zeros(5000),
+                 interleaved(200, 4), zeros(30))
+    cases["spill"] = (w, h, int((w * h).sum()) + 4096)
+    return {name: _tile_inputs(rng, w, h, p_cap, (300, grid_y))
+            for name, (w, h, p_cap) in cases.items()}

@@ -125,6 +125,10 @@ def test_expand_pairs_plain_counts_and_order():
     assert (d[1:][same_tile] >= d[:-1][same_tile]).all()
 
 
+TILE_CASES = ("zero_runs", "clamped_tail", "ragged_capacity", "wide_rect",
+              "dense", "empty", "spill")
+
+
 def _owner_cases():
     """Depth-ordered rect pair counts (live Gaussians first, zero-count
     rects at the tail) for K1's owner window, with its pair capacity."""
@@ -142,6 +146,46 @@ def _owner_cases():
     }
 
 
+def check_window(offsets, total, p_cap, slots=pbin.EXPAND_BLOCK, chunks=1,
+                 grid=None):
+    """``owner_window_plain``'s partition against ``searchsorted``, range by
+    range (``window_steps``): j0 from the warp's search, the entries the
+    block stages (j0 on, `chunks` chunks of EXPAND_BLOCK), its owners among
+    them (the ends of runs of equal offsets at or below its last slot),
+    each slot's owner found among those, and the spill flag (the owners
+    reach past the staged entries). Returns j0, the counts and the spill
+    flags."""
+    j0, count, spill = pbin.owner_window_plain(offsets, total, p_cap, slots,
+                                               chunks, grid)
+    starts, lasts = pbin.window_steps(total, p_cap, slots, grid)
+    off = offsets.long()
+    n = off.shape[0]
+    tot = min(int(total), p_cap)
+    covered = torch.cat([torch.arange(int(a), int(z) + 1)
+                         for a, z in zip(starts, lasts)] or
+                        [torch.zeros(0, dtype=torch.int64)])
+    assert torch.equal(covered, torch.arange(tot))  # each slot once, in order
+    assert j0.shape[0] == count.shape[0] == starts.shape[0]
+    span = chunks * pbin.EXPAND_BLOCK
+    nxt = torch.cat([off[1:], off.new_tensor([2 ** 62])])
+    want = torch.searchsorted(off, torch.arange(tot), right=True) - 1
+    for b, (p0, last) in enumerate(zip(starts.tolist(), lasts.tolist())):
+        assert last - p0 < slots
+        j = int(j0[b])
+        assert j == pbin.warp_lower_bound_plain(off, 0, n, p0 + 1) - 1
+        beyond = j + span
+        assert bool(spill[b]) == (beyond < n and int(off[beyond]) <= last)
+        if spill[b]:
+            continue
+        idx = torch.arange(j, min(beyond, n))
+        owners = idx[(off[idx] <= last) & (nxt[idx] > off[idx])]
+        assert int(count[b]) == owners.numel() <= slots
+        sl = torch.arange(p0, last + 1)
+        got = owners[torch.searchsorted(off[owners], sl, right=True) - 1]
+        assert torch.equal(got, want[p0:last + 1])
+    return j0, count, spill
+
+
 @pytest.mark.parametrize("case", sorted(_owner_cases()))
 def test_owner_window_plain_matches_searchsorted(case):
     """K1's block partition (the owner of each block's first slot from the
@@ -151,40 +195,118 @@ def test_owner_window_plain_matches_searchsorted(case):
     counts, p_cap = _owner_cases()[case]
     offsets = torch.from_numpy(np.cumsum(counts) - counts).to(torch.int32)
     total = torch.tensor([int(counts.sum())], dtype=torch.int32)
-    j0, count, spill = pbin.owner_window_plain(offsets, total, p_cap)
-    tot = min(int(total), p_cap)
-    assert j0.shape[0] == -(-tot // pbin.EXPAND_BLOCK)
+    _, count, spill = check_window(offsets, total, p_cap)
     assert not spill.any()
-    assert int(count.min()) >= 1 and int(count.max()) <= pbin.EXPAND_BLOCK
-    pos = torch.arange(tot, dtype=torch.int32)
-    want = torch.searchsorted(offsets, pos, right=True) - 1
-    block = pos.long() // pbin.EXPAND_BLOCK
-    got = torch.empty_like(want)
-    for b in range(j0.shape[0]):
-        window = offsets[j0[b]:j0[b] + count[b]]
-        sel = block == b
-        got[sel] = j0[b] + torch.searchsorted(window, pos[sel],
-                                              right=True) - 1
-    assert torch.equal(got, want)
-    owners_per_block = [int(want[block == b].unique().numel())
-                        for b in range(j0.shape[0])]
-    assert owners_per_block == count.tolist()
+    assert int(count.min()) >= 1
     if case == "long_and_dense":
-        assert max(owners_per_block) >= 200
+        assert int(count.max()) >= 200
+        want = torch.searchsorted(offsets, torch.arange(int(total)),
+                                  right=True) - 1
         assert int((want == 300).sum()) >= 26 * pbin.EXPAND_BLOCK
 
 
 def test_owner_window_plain_spills_past_one_owner_per_thread():
     """Offsets that do not ascend strictly (zero-count rects among the
-    live ones, which the depth sort does not produce) can put more owners
-    before a block's last slot than it has slots: the window says so,
-    and the kernel then searches each slot's owner in device memory."""
+    live ones, which K1's depth sort does not produce) can put more
+    entries before a block's last slot than K1's one chunk holds: the
+    window says so, and the kernel then searches each slot's owner in
+    device memory."""
     counts = np.concatenate([[5], np.zeros(300, np.int64), [600]])
     offsets = torch.from_numpy(np.cumsum(counts) - counts).to(torch.int32)
     total = torch.tensor([605], dtype=torch.int32)
-    j0, count, spill = pbin.owner_window_plain(offsets, total, 1024)
+    j0, count, spill = check_window(offsets, total, 1024)
     assert spill.tolist() == [True, False, False]
-    assert count[0] == pbin.EXPAND_BLOCK and j0.tolist()[1:] == [301, 301]
+    # block 0's two owners lie 301 entries apart
+    assert count[0] == 2 and j0.tolist() == [0, 301, 301]
+
+
+def enumerate_tiles(k):
+    """K7's slots for inputs built directly (``tile_window_cases``),
+    written out as loops over each Gaussian's rect in depth order."""
+    off, base, nx, gid = (k[a].tolist() for a in ("offsets", "base", "nx",
+                                                 "gid"))
+    tot, gx, n = int(k["total"]), k["grid_x"], len(off)
+    tiles, ids = [], []
+    for j in range(n):
+        end = min(off[j + 1] if j + 1 < n else tot, tot)
+        for r in range(max(end - off[j], 0)):
+            tiles.append(base[j] + (r // nx[j]) * gx + r % nx[j])
+            ids.append(gid[j])
+    return np.array(tiles, np.int64), np.array(ids, np.int64)
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_tile_window_plain_matches_searchsorted(case):
+    """K7's partition (persistent blocks staging up to 1,024 slots a step,
+    up to eight chunks of entries) where its windows are extreme:
+    zero-count runs of 1-300 among the live rects, offsets clamped to the
+    capacity at the tail, a capacity that is no multiple of the step, one
+    owner over 9+ steps (a rect 300 tiles wide), steps of 1,024 owners, no
+    pair at all, and owners spanning exactly the window and one entry more
+    (the spill). Also K7's plain version against the rects written out,
+    and K1's one-chunk window spilling on the zero-count runs that K7's
+    holds."""
+    k = PT.tile_window_cases()[case]
+    # K7's persistent grid: one block, a few, and the H100's 616 at the
+    # full scene's shape (each block's steps start at its share of slots).
+    counts, spills = {}, {}
+    for grid in (1, 7, 616):
+        _, counts[grid], spills[grid] = check_window(
+            k["offsets"], k["total"], k["p_cap"], pbin.TILES_STEP,
+            pbin.TILES_CHUNKS, grid)
+    old = check_window(k["offsets"], k["total"], k["p_cap"])[2]
+    tot = int(k["total"])
+    tile, gid, hist = pbin.expand_tiles_plain(**k)
+    want_t, want_g = enumerate_tiles(k)
+    assert want_t.size == tot
+    np.testing.assert_array_equal(tile[:tot].numpy(), want_t)
+    np.testing.assert_array_equal(gid[:tot].numpy(), want_g)
+    assert (tile[tot:] == k["num_tiles"]).all() and (gid[tot:] == -1).all()
+    np.testing.assert_array_equal(
+        hist.numpy(), np.bincount(want_t, minlength=k["num_tiles"]))
+    # One block: steps of 1,024 from slot 0, the second of which holds the
+    # owners one entry past the window; every grid spills somewhere there.
+    expect = {"spill": [1, 6]}.get(case, [])
+    assert spills[1].nonzero().flatten().tolist() == expect
+    assert all(bool(sp.any()) == (case == "spill") for sp in spills.values())
+    if case in ("zero_runs", "dense"):
+        assert old.any()
+    if case == "dense":
+        assert int(counts[1].max()) == pbin.TILES_STEP
+    if case == "empty":
+        assert tot == 0 and counts[616].numel() == 0
+    if case in ("clamped_tail", "ragged_capacity"):
+        assert tot == k["p_cap"] and int(k["offsets"].max()) == k["p_cap"]
+    if case == "ragged_capacity":
+        assert k["p_cap"] % 4 and k["p_cap"] % pbin.TILES_STEP
+    if case == "wide_rect":
+        assert int(k["nx"].max()) >= 256
+
+
+def test_tile_window_holds_the_wide_scene():
+    """The chip smoke's wide scene (a 4096x256 camera, 2,000 Gaussians,
+    most of them zero-count): under K1's one-chunk window of 256 slots
+    four blocks would spill; K7's window spills none."""
+    from priordepth_gaussiansplatting_torch.core import transforms
+    from priordepth_gaussiansplatting_torch.ops import projection
+    g = {a: torch.from_numpy(v) for a, v in PT.wide_gaussians().items()}
+    w, h = 4096, 256
+    cam = PT.look_at_camera((0.0, 0.0, -2.5), width=w, height=h,
+                            device="cpu")
+    proj = projection.project_gaussians(
+        g["means"], transforms.scaling_rotation_to_cov3d(g["scales"],
+                                                         g["quats"]),
+        g["opacities"], g["sh"], 3, cam.world_view, cam.full_proj,
+        cam.cam_center, w, h, cam.tan_fovx, cam.tan_fovy,
+        antialiasing=True)
+    x = pbin.tile_inputs(proj, w, h, 1 << 14)
+    old = check_window(x["offsets"], x["total"], 1 << 14)[2]
+    assert int(old.sum()) == 4
+    for grid in (1, 7, 616):
+        assert not check_window(x["offsets"], x["total"], 1 << 14,
+                                pbin.TILES_STEP, pbin.TILES_CHUNKS,
+                                grid)[2].any()
+    assert int((x["nx"] == 0).sum()) > 0 and int(x["nx"].max()) >= 256
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -365,6 +365,45 @@ def test_expand_pairs_kernel_owner_windows(card, case):
     assert 0 < kept < min(int(k["total"]), k["p_cap"])
 
 
+@pytest.mark.parametrize("grid_y", [34, 100])
+@pytest.mark.parametrize("case", ["zero_runs", "clamped_tail",
+                                  "ragged_capacity", "wide_rect", "dense",
+                                  "empty", "spill"])
+def test_expand_tiles_kernel_owner_windows(card, case, grid_y):
+    """K7 against its plain version where its blocks' owner windows are
+    extreme (``utils/testing.py::tile_window_cases``): zero-count runs of
+    1-300 among the live rects, offsets clamped to the capacity at the
+    tail, a capacity that is no multiple of the block nor of four slots, a
+    rect 300 tiles wide over 9+ blocks, blocks of 1,024 owners, no pair at
+    all, and blocks whose owners span the window and one entry more (they
+    search in device memory); on 300 x 34 tiles (the histogram in shared
+    memory) and 300 x 100 (in device memory). Tiles, ids (padding slots
+    included) and histogram bit for bit, one launch, twice over one output
+    buffer reused (the kernel zeroes the histogram itself)."""
+    k = PT.tile_window_cases(grid_y)[case]
+    want = binning.expand_tiles_plain(**k)
+    shape = binning.expand_tiles_grid(k["p_cap"], k["num_tiles"])
+    assert shape["shared_hist"] == (grid_y == 34)
+    spill = binning.owner_window_plain(k["offsets"], k["total"], k["p_cap"],
+                                       binning.TILES_STEP,
+                                       binning.TILES_CHUNKS,
+                                       shape["grid"])[2]
+    assert bool(spill.any()) == (case == "spill")
+    k = {a: x.to(card) if isinstance(x, torch.Tensor) else x
+         for a, x in k.items()}
+    before = kernels.launch_counts()["expand_tiles"]
+    got = binning.expand_tiles(**k)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["expand_tiles"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    del got  # the caching allocator hands the same memory to the next call
+    again = binning.expand_tiles(**k)
+    torch.cuda.synchronize()
+    for g, w in zip(again, want):
+        assert torch.equal(g.cpu(), w)
+
+
 def test_rasterize_gradients_on_card_match_cpu(card):
     proj = _projected(card)
     bg = torch.tensor([0.1, 0.2, 0.3], device=card)
