@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py            # one card, every phase below
-    python3 chip_smoke.py --ranks 4  # only the multi-rank phase, 4 cards
+    python3 chip_smoke.py --ranks 4  # only the multi-rank phases, 4 cards
     python3 chip_smoke.py --turns DIR  # only K7 and K1 against DIR's
 
 Builds the port's CUDA kernels from ``priordepth_gaussiansplatting_torch/
@@ -63,7 +63,11 @@ line per phase:
      window and under K1's; K7's time queued and unqueued;
  10. probe: ``python -m priordepth_gaussiansplatting_torch.perf_probe
      1000000 1600 1066`` (stage times; K7 launched once per bin+sort call);
- 11. train_cli: ``python -m priordepth_gaussiansplatting_torch.train`` on a
+ 11. bench: ``python -m priordepth_gaussiansplatting_torch.bench``, the
+     counterpart of the root ``bench.py`` (its four-key last line, no
+     overflow, each step's kernels launched once per step), beside the
+     stage probe's fwd+bwd rays/s of phase probe;
+ 12. train_cli: ``python -m priordepth_gaussiansplatting_torch.train`` on a
      512x512, 32-view raycast scene for 1,000 iterations with a store of
      2^18 rows, whose default pair capacity (2^20) holds every pair of an
      evaluation view, and the steps' pair capacity pinned there too (the
@@ -71,7 +75,15 @@ line per phase:
      over the run, none skipped, no evaluation view overflowing, held-out
      PSNR higher at 1,000 than at 500), a resume from its iteration-500
      checkpoint, and the render CLI on its snapshot;
- 12. kernels: one object per kernel (the line before the card's line).
+ 13. mesh_train: ``train.trainer.Trainer(mesh=Mesh(1, 1))`` in a one-rank
+     NCCL group on train_cli's scene and flags for 1,000 iterations (none
+     skipped, held-out PSNR higher at 1,000 than at 500, each step kernel
+     once per iteration): its per-iteration losses equal (rel 1e-5) to
+     the single-rank trainer's, the two fed the same split draws, and up
+     to the first densify round that trainer's equal to the train_cli
+     run's logged ones; a resume from its iteration-500 checkpoint for 20
+     iterations, and its it/s beside train_cli's;
+ 14. kernels: one object per kernel (the line before the card's line).
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -87,7 +99,11 @@ tile bands (K6), (1, N), (N, 1) and, for N = 4, (2, 2) with tile bands:
 one step against single-rank steps on its own card (the mean over the
 batch's views of their gradients, its own rows, gradient tolerance), then
 10 steps with every launch count and guard checked, and the time per step
-beside the single-rank step's on the same card.
+beside the single-rank step's on the same card. Then phase multi_cli: the
+train CLI itself, starting its N ranks, on train_cli's scene for 500
+iterations over (1, N) with tile bands and, for N = 4, (2, 2) (it/s and
+held-out PSNR), and a single-rank checkpoint restored over (1, N), whose
+shards' active rows differ by at most one.
 
 Any failure raises: the script exits non-zero, and it does so before
 printing a result when there is no CUDA card or when the port is not
@@ -185,6 +201,8 @@ WIDE_W, WIDE_H, WIDE_N = 4096, 256, 2000
 CLI_SCENE = (512, 32)
 CLI_ITERS, CLI_CHECK, CLI_RESUME = 1000, 500, 20
 CLI_CAPACITY, CLI_PAIRS = 1 << 18, 1 << 20
+# --ranks: the train CLI's iterations on train_cli's scene per rank grid.
+MULTI_CLI_ITERS = 500
 GRAD_ATOL, GRAD_RTOL = 3e-4, 2e-3
 
 
@@ -238,6 +256,24 @@ def bound(nbytes: float, ops: float):
     tb = nbytes / CARD_BYTES_PER_S * 1e3
     to = ops / CARD_F32_OPS_PER_S * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def run_readings(events, lo: int, hi: int):
+    """A training run's held-out and train PSNR by iteration, and its it/s
+    between iterations lo and hi, from its ``events.jsonl`` records:
+    ``iter_time`` is the time since the run's start when the metrics were
+    drained, every 50 iterations."""
+    def tag(name):
+        return {e["step"]: e["value"] for e in events if e.get("tag") == name}
+    clock = tag("iter_time")
+    return (tag("test/loss_viewpoint - psnr"),
+            tag("train/loss_viewpoint - psnr"),
+            (hi - lo) / (clock[hi] - clock[lo]))
+
+
+def read_events(model: str) -> list:
+    with open(os.path.join(model, "events.jsonl")) as f:
+        return [json.loads(line) for line in f]
 
 
 class Smoke:
@@ -1963,6 +1999,7 @@ class Smoke:
         assert st["full fwd+bwd"]["launches"] == dict.fromkeys(STEP, calls)
         assert res["pairs"] > 0 and res["device"].startswith("cuda")
         self.results["launches"]["expand_tiles"] = calls
+        self.results["probe"] = res
         emit("probe", ok=True, seconds=seconds, n=res["n"],
              width=res["width"], height=res["height"],
              pair_capacity=res["pair_capacity"], pairs=res["pairs"],
@@ -1972,8 +2009,9 @@ class Smoke:
              rays_per_s_fwd=res["rays_per_s_fwd"],
              rays_per_s_fwd_bwd=res["rays_per_s_fwd_bwd"])
 
-    def train_cli(self, args, timeout: int = 900) -> dict:
-        """One run of the train CLI: its summary line, as JSON."""
+    def train_cli(self, args, timeout: int = 900, path=STEP) -> dict:
+        """One run of the train CLI: its summary line, as JSON, and its
+        output. Its steps must launch each kernel of `path` once."""
         out = self.run_cmd([sys.executable, "-m",
                             "priordepth_gaussiansplatting_torch.train",
                             "--eval", "--disable_viewer",
@@ -1987,41 +2025,35 @@ class Smoke:
         res = json.loads(last[len("Training complete: "):])
         assert res["skipped"] == 0, res
         assert res["step_launches"] == dict.fromkeys(
-            STEP, res["iterations_run"]), res["step_launches"]
+            path, res["iterations_run"]), res["step_launches"]
         assert "overflowed the pair capacity" not in out, out[-3000:]
-        return res
+        return dict(res, out=out)
 
     def phase_train_cli(self):
         """Train a raycast scene with the port's CLI, resume it from its
         checkpoint, render its snapshot."""
         size, views = CLI_SCENE
+        scene = self.cli_scene = os.path.join(self.work, "cli_scene")
+        t0 = time.perf_counter()
+        self.run_cmd([sys.executable, "tools/make_synthetic_scene.py",
+                      scene, str(size), str(views)], 600)
+        scene_s = time.perf_counter() - t0
         with tempfile.TemporaryDirectory() as tmp:
-            scene = os.path.join(tmp, "scene")
             model = os.path.join(tmp, "model")
-            t0 = time.perf_counter()
-            self.run_cmd([sys.executable, "tools/make_synthetic_scene.py",
-                          scene, str(size), str(views)], 600)
-            scene_s = time.perf_counter() - t0
             run = self.train_cli(
                 ["-s", scene, "-m", model, "--iterations", str(CLI_ITERS),
                  "--test_iterations", str(CLI_CHECK), str(CLI_ITERS),
                  "--save_iterations", str(CLI_ITERS),
                  "--checkpoint_iterations", str(CLI_CHECK)])
             assert run["iterations_run"] == CLI_ITERS
-            with open(os.path.join(model, "events.jsonl")) as f:
-                ev = [json.loads(line) for line in f]
-            psnr = {e["step"]: e["value"] for e in ev
-                    if e.get("tag") == "test/loss_viewpoint - psnr"}
-            train_psnr = {e["step"]: e["value"] for e in ev
-                          if e.get("tag") == "train/loss_viewpoint - psnr"}
+            ev = read_events(model)
+            psnr, train_psnr, steady = run_readings(ev, CLI_CHECK + 50,
+                                                    CLI_ITERS - 50)
             assert psnr[CLI_ITERS] > psnr[CLI_CHECK], psnr
-            # it/s between the two evaluations: iter_time is the time since
-            # the run's start when the metrics were drained, every 50
-            # iterations.
-            clock = {e["step"]: e["value"] for e in ev
-                     if e.get("tag") == "iter_time"}
-            lo, hi = CLI_CHECK + 50, CLI_ITERS - 50
-            steady = (hi - lo) / (clock[hi] - clock[lo])
+            self.results["train_cli"] = dict(
+                it_per_s_between_evals=steady, test_psnr=psnr,
+                losses={e["step"]: e["value"] for e in ev if e.get("tag")
+                        == "train_loss_patches/total_loss"})
             resumed = self.train_cli(
                 ["-s", scene, "-m", os.path.join(tmp, "resumed"),
                  "--iterations", str(CLI_CHECK + CLI_RESUME),
@@ -2053,6 +2085,142 @@ class Smoke:
                           skipped=resumed["skipped"],
                           wall_s=resumed["wall_s"]),
              renders=len(pngs), render_cli_s=render_s)
+
+    def phase_bench(self):
+        """The bench entry as a user runs it: ``bench.py``'s workload and
+        last line. Beside it the stage probe's fwd+bwd rays/s from phase
+        probe: the same gradient, but at the default pair capacity (4 per
+        Gaussian) where the bench sizes both capacities at 1.05x the
+        probed pairs, and timed by CUDA events, not the host clock."""
+        t0 = time.perf_counter()
+        out = self.run_cmd([sys.executable, "-m",
+                            "priordepth_gaussiansplatting_torch.bench"], 600)
+        seconds = time.perf_counter() - t0
+        lines = out.strip().splitlines()
+        line, res = json.loads(lines[-1]), json.loads(lines[-2])
+        assert list(line) == ["metric", "value", "unit", "vs_baseline"], line
+        assert line["metric"] == (f"rays/s fwd+bwd, {FULL_N // 1000}k "
+                                  f"gaussians @{FULL_W}x{FULL_H}, 1 chip")
+        assert line["unit"] == "rays/s" and line["value"] > 0, line
+        assert res["overflow"] == 0 and res["device"].startswith("cuda")
+        assert (res["n"], res["width"], res["height"]) == (FULL_N, FULL_W,
+                                                           FULL_H)
+        assert res["launches"] == dict.fromkeys(STEP, res["steps"]), res
+        probe = self.results["probe"]
+        emit("bench", ok=True, seconds=seconds, line=line,
+             rays_per_s=line["value"], ms_per_step=res["ms_per_step"],
+             chain_s=res["chain_s"], p_cap=res["p_cap"], v_cap=res["v_cap"],
+             num_rect=res["num_rect"], num_valid=res["num_valid"],
+             launches=res["launches"], nvidia_smi=res["nvidia_smi"],
+             probe=dict(rays_per_s_fwd_bwd=probe["rays_per_s_fwd_bwd"],
+                        pair_capacity=probe["pair_capacity"],
+                        pairs=probe["pairs"], timing="CUDA events"))
+
+    def phase_mesh_train(self):
+        """The trainer over a one-rank NCCL mesh on train_cli's scene and
+        flags: CLI_ITERS iterations with their evaluations and a
+        checkpoint, iteration by iteration against the single-rank trainer
+        (both fed the same split draws; up to the first densify round that
+        trainer is the train CLI's run), and a resume from the
+        checkpoint."""
+        import torch.distributed as dist
+        from priordepth_gaussiansplatting_torch.parallel import mesh as pmesh
+        from priordepth_gaussiansplatting_torch.train import __main__ as cli
+        t, k = self.torch, self.kernels
+
+        def trainer(model, iters, mesh=None):
+            return cli.build_trainer(cli.parser().parse_args(
+                ["-s", self.cli_scene, "-m", model, "--eval", "--quiet",
+                 "--disable_viewer", "--noise_injection_iter", "0",
+                 "--floating_prune_iter", "0",
+                 "--init_capacity", str(CLI_CAPACITY),
+                 "--pin_pair_capacity", str(CLI_PAIRS),
+                 "--iterations", str(iters)]), self.dev, mesh)
+
+        def same_draws(tr):
+            """Split draws from one seed, so that the two trainers' densify
+            rounds move the same rows the same way."""
+            g = t.Generator(self.dev).manual_seed(0)
+            tr.noise_source = lambda: t.randn(
+                (2, tr.state.capacity, 3), generator=g, device=self.dev)
+            return tr
+
+        opt = self.config.OptimizationConfig()
+        first_round = next((it for it in range(opt.densify_from_iter + 1,
+                                               CLI_ITERS + 1)
+                            if it % opt.densification_interval == 0),
+                           CLI_ITERS)
+        ref, losses = same_draws(trainer("", CLI_ITERS)), []
+        ref.train(iterations=CLI_ITERS, test_iterations=(),
+                  save_iterations=(),
+                  on_iteration=lambda tr, it, m: losses.append(m["loss"]))
+        ref_losses = t.stack(losses).double().cpu().numpy()
+        del ref
+        # Up to the first densify round the single-rank trainer in this
+        # process is the train CLI's (its own draws start there).
+        cli_losses = self.results["train_cli"]["losses"]
+        cli_diff = max(abs(v - ref_losses[it - 1]) / abs(ref_losses[it - 1])
+                       for it, v in cli_losses.items() if it <= first_round)
+
+        with tempfile.TemporaryDirectory() as tmp:
+            assert pmesh.initialize_multihost(
+                f"file://{tmp}/store", world_size=1, rank=0, device=self.dev)
+            try:
+                mesh = pmesh.Mesh(1, 1, device=self.dev)
+                model = os.path.join(tmp, "model")
+                tr, losses = same_draws(trainer(model, CLI_ITERS, mesh)), []
+                t.cuda.synchronize()
+                k.reset_launch_counts()
+                run = tr.train(
+                    iterations=CLI_ITERS,
+                    test_iterations=(CLI_CHECK, CLI_ITERS),
+                    save_iterations=(), checkpoint_iterations=(CLI_CHECK,),
+                    on_iteration=lambda tr_, it, m: losses.append(m["loss"]))
+                launches = k.launch_counts()
+                tr.logger.close()
+                mesh_losses = t.stack(losses).double().cpu().numpy()
+                del tr
+                resumed = trainer(os.path.join(tmp, "resumed"),
+                                  CLI_CHECK + CLI_RESUME, mesh)
+                resumed.restore(os.path.join(model, f"chkpnt{CLI_CHECK}.pkl"))
+                res2 = resumed.train(
+                    iterations=CLI_CHECK + CLI_RESUME,
+                    test_iterations=(CLI_CHECK + CLI_RESUME,),
+                    save_iterations=())
+                del resumed
+                psnr, train_psnr, steady = run_readings(
+                    read_events(model), CLI_CHECK + 50, CLI_ITERS - 50)
+            finally:
+                dist.destroy_process_group()
+        rel = np.abs(mesh_losses - ref_losses) / np.abs(ref_losses)
+        differ = np.nonzero(rel > 1e-5)[0]
+        assert not len(differ), (
+            f"the mesh trainer's loss first differs from the single-rank "
+            f"trainer's at iteration {int(differ[0]) + 1}: "
+            f"{mesh_losses[differ[0]]} vs {ref_losses[differ[0]]}")
+        assert cli_diff <= 1e-5, cli_diff
+        assert run["skipped"] == 0 and res2["skipped"] == 0, (run, res2)
+        assert run["step_launches"] == dict.fromkeys(STEP, CLI_ITERS), run
+        assert all(launches[n] >= CLI_ITERS for n in STEP), launches
+        assert all(launches[n] == 0 for n in BANDS), launches
+        assert res2["iterations_run"] == CLI_RESUME
+        assert psnr[CLI_ITERS] > psnr[CLI_CHECK], psnr
+        emit("mesh_train", ok=True, world=1, backend=mesh.backend,
+             iterations=CLI_ITERS, wall_s=run["wall_s"],
+             it_per_s_between_evals=steady,
+             train_cli_it_per_s_between_evals=self.results["train_cli"][
+                 "it_per_s_between_evals"],
+             losses_vs_single=dict(iterations=CLI_ITERS,
+                                   max_rel=float(rel.max()),
+                                   equal_bits=int((rel == 0).sum())),
+             first_densify_round=first_round,
+             cli_losses_vs_single_max_rel=cli_diff,
+             n_active=run["n_active"], step_launches=run["step_launches"],
+             launches={n: launches[n] for n in STEP}, test_psnr=psnr,
+             train_psnr=train_psnr,
+             train_cli_test_psnr=self.results["train_cli"]["test_psnr"],
+             resumed=dict(iterations_run=res2["iterations_run"],
+                          skipped=res2["skipped"], wall_s=res2["wall_s"]))
 
     def kernels_line(self):
         res = self.results
@@ -2086,8 +2254,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--ranks", type=int, default=1,
-        help="with N > 1, run only the multi-rank phase: N processes, one "
-             "per card, in an NCCL group (needs N cards)")
+        help="with N > 1, run only the multi-rank phases: N processes, "
+             "one per card, in an NCCL group, then the train CLI over N "
+             "cards (needs N cards)")
     parser.add_argument(
         "--turns", metavar="DIR",
         help="run only the turns phase: K7 and K1 in turns against those "
@@ -2108,17 +2277,21 @@ def main(argv=None) -> int:
     if args.turns:
         smoke.phase_turns(args.turns)
         return finish(smoke.smi)
-    smoke.phase_device(build_seconds, build_wall)
-    smoke.phase_mid()
-    smoke.phase_full()
-    smoke.phase_train()
-    smoke.phase_train_mid()
-    smoke.phase_bands()
-    smoke.phase_sharded()
-    smoke.phase_cli()
-    smoke.phase_bin()
-    smoke.phase_probe()
-    smoke.phase_train_cli()
+    with tempfile.TemporaryDirectory() as work:
+        smoke.work = work
+        smoke.phase_device(build_seconds, build_wall)
+        smoke.phase_mid()
+        smoke.phase_full()
+        smoke.phase_train()
+        smoke.phase_train_mid()
+        smoke.phase_bands()
+        smoke.phase_sharded()
+        smoke.phase_cli()
+        smoke.phase_bin()
+        smoke.phase_probe()
+        smoke.phase_bench()
+        smoke.phase_train_cli()
+        smoke.phase_mesh_train()
     smoke.kernels_line()
     return finish(smoke.smi)
 
@@ -2158,7 +2331,67 @@ def main_multi(ranks: int, build_wall: float) -> int:
                                   for r in per_rank]
                           for label in per_rank[0]["grids"]},
          single_step_ms_by_rank=[r["single_step_ms"] for r in per_rank])
+    multi_cli(ranks)
     return finish(smi)
+
+
+def multi_cli(ranks: int) -> None:
+    """Phase multi_cli of ``--ranks N``: the train CLI itself on N cards
+    (it starts its N ranks) on train_cli's scene, for MULTI_CLI_ITERS
+    iterations over the grids (1, N) with tile bands and, for N = 4,
+    (2, 2); then a single-rank checkpoint restored over (1, N), whose
+    shards' active rows must differ by at most one."""
+    smoke = Smoke()
+    size, views = CLI_SCENE
+    iters, check = MULTI_CLI_ITERS, MULTI_CLI_ITERS // 2
+    grids = [("1x%d_bands" % ranks, ["--n_gauss", str(ranks), "--tile_shard"],
+              TILE_STEP)]
+    if ranks % 2 == 0 and ranks > 2:
+        grids.append(("2x%d" % (ranks // 2),
+                      ["--n_data", "2", "--n_gauss", str(ranks // 2)], STEP))
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        scene = os.path.join(work, "scene")
+        smoke.run_cmd([sys.executable, "tools/make_synthetic_scene.py",
+                       scene, str(size), str(views)], 600)
+        for label, flags, path in grids:
+            model = os.path.join(work, label)
+            run = smoke.train_cli(
+                ["-s", scene, "-m", model, "--iterations", str(iters),
+                 "--test_iterations", str(check), str(iters),
+                 "--save_iterations", str(iters)] + flags, path=path)
+            assert run["iterations_run"] == iters
+            assert run["out"].count("Training complete: ") == 1
+            assert "Multi-chip mesh: " in run["out"]
+            psnr, train_psnr, steady = run_readings(
+                read_events(model), check + 50, iters - 50)
+            assert psnr[iters] > psnr[check], (label, psnr)
+            out[label] = dict(it_per_s_between_evals=steady,
+                              wall_s=run["wall_s"], test_psnr=psnr,
+                              train_psnr=train_psnr,
+                              n_active=run["n_active"],
+                              step_launches=run["step_launches"])
+        single = os.path.join(work, "single")
+        smoke.train_cli(["-s", scene, "-m", single, "--iterations",
+                         str(check), "--test_iterations", str(check),
+                         "--save_iterations", str(check),
+                         "--checkpoint_iterations", str(check)])
+        run = smoke.train_cli(
+            ["-s", scene, "-m", os.path.join(work, "restored"),
+             "--n_gauss", str(ranks), "--iterations", str(check + 20),
+             "--test_iterations", str(check + 20), "--save_iterations",
+             str(check + 20), "--start_checkpoint",
+             os.path.join(single, f"chkpnt{check}.pkl")])
+        line = next(ln for ln in run["out"].splitlines()
+                    if ln.startswith("Restored checkpoint at iteration"))
+        counts = json.loads(line[line.index("["):line.index("]") + 1])
+        assert len(counts) == ranks and max(counts) - min(counts) <= 1, line
+        out["restored"] = dict(active_per_shard=counts,
+                               iterations_run=run["iterations_run"],
+                               skipped=run["skipped"])
+    emit("multi_cli", ok=True, ranks=ranks, scene=dict(size=size,
+                                                       views=views),
+         iterations=iters, **out)
 
 
 if __name__ == "__main__":

@@ -171,14 +171,15 @@ def initialize_multihost(init_method: str | None = None,
 
 
 def _child(rank: int, world: int, backend: str, store_path: str,
-           timeout_s: float, results, fn, args) -> None:
+           timeout_s: float | None, results, fn, args) -> None:
     try:
         if backend == "nccl":  # one rank per card: rank r on card r
             torch.cuda.set_device(rank)
         store = dist.FileStore(store_path, world)
         dist.init_process_group(
             backend, store=store, rank=rank, world_size=world,
-            timeout=datetime.timedelta(seconds=timeout_s))
+            **({} if timeout_s is None else
+               {"timeout": datetime.timedelta(seconds=timeout_s)}))
         try:
             results.put((rank, True, fn(rank, world, *args)))
         finally:
@@ -189,7 +190,7 @@ def _child(rank: int, world: int, backend: str, store_path: str,
 
 
 def spawn(world: int, fn, *args, backend: str, store_dir: str,
-          timeout: float = 120.0) -> list:
+          timeout: float | None = 120.0) -> list:
     """Run ``fn(rank, world, *args)`` in `world` fresh processes (the
     ``spawn`` start method) that share a process group over a FileStore
     in `store_dir`, and return their results in rank order. With NCCL,
@@ -198,7 +199,8 @@ def spawn(world: int, fn, *args, backend: str, store_dir: str,
     `fn` and its arguments and result must pickle (`fn` by its import
     path). Raises RuntimeError with the child's traceback if any rank
     raises, and TimeoutError if the ranks have not all finished within
-    `timeout` seconds; either way every child is stopped before it
+    `timeout` seconds (None: no deadline, and the process group's default
+    timeout for a collective); either way every child is stopped before it
     returns."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
@@ -210,7 +212,7 @@ def spawn(world: int, fn, *args, backend: str, store_dir: str,
              for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + timeout
+    deadline = None if timeout is None else time.monotonic() + timeout
     out = {}
 
     def failure(rank, tb):
@@ -218,7 +220,7 @@ def spawn(world: int, fn, *args, backend: str, store_dir: str,
 
     try:
         while len(out) < world:
-            left = deadline - time.monotonic()
+            left = 1.0 if deadline is None else deadline - time.monotonic()
             if left <= 0:
                 missing = sorted(set(range(world)) - set(out))
                 raise TimeoutError(f"spawn: ranks {missing} did not finish "
@@ -242,7 +244,9 @@ def spawn(world: int, fn, *args, backend: str, store_dir: str,
                 raise failure(rank, value)
             out[rank] = value
         for p in procs:
-            p.join(max(deadline - time.monotonic(), 0.01))
+            # A rank that has sent its result only leaves its group.
+            p.join(60.0 if deadline is None
+                   else max(deadline - time.monotonic(), 0.01))
         return [out[r] for r in range(world)]
     finally:
         for p in procs:

@@ -4,18 +4,30 @@
         [--eval] [--iterations N] [--test_iterations ...]
         [--save_iterations ...] [--checkpoint_iterations ...]
         [--start_checkpoint <model>/chkpnt<it>.pkl] [--data_device cpu]
+        [--n_data D] [--n_gauss G] [--tile_shard]
 
 The same flags and artifacts as ``train.py``: ``<model>/cfg_args``,
 ``events.jsonl``, ``point_cloud/iteration_<it>/point_cloud.ply`` with
 ``exposure.json``, and ``chkpnt<it>.pkl``. It runs on the card, or on the
-CPU with ``--data_device cpu``. Not ported yet, so refused: the multi-rank
-flags ``--n_data``/``--n_gauss`` above 1 and ``--tile_shard`` (ROADMAP
-queue 1, item 2), and runs that reach an enabled thesis event (item 4: pass
-``--noise_injection_iter 0 --floating_prune_iter 0``). The network viewer
-(item 6) is not ported: without ``--disable_viewer`` the CLI says so once
-and trains. The last line is the run's summary as JSON after
-``Training complete: ``, with its skipped updates and the kernel launches
-of its steps (those of the evaluations left out), by kernel.
+CPU with ``--data_device cpu``.
+
+With ``--n_data D --n_gauss G`` above one rank it trains on a D x G grid
+of ranks (``parallel/``): D cameras per step, the store sharded over G,
+and with ``--tile_shard`` the compositor's tiles split into bands over the
+G ranks. Under ``torchrun`` (the environment names the process group:
+``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``) each process joins it and takes
+card ``LOCAL_RANK``; otherwise the CLI starts D x G ranks itself, one per
+card over NCCL (gloo with ``--data_device cpu``). A world of another size,
+or more ranks than the machine has cards, is refused. Rank 0 alone writes
+the artifacts and prints.
+
+Not ported yet, so refused: runs that reach an enabled thesis event
+(ROADMAP queue 1: Prune; pass ``--noise_injection_iter 0
+--floating_prune_iter 0``). The network viewer (ROADMAP queue 1: Viewer)
+is not ported: without ``--disable_viewer`` the CLI says so once and
+trains. The last line is the run's summary as JSON after ``Training
+complete: ``, with its skipped updates and the kernel launches of its
+steps (those of the evaluations left out), by kernel.
 """
 
 from __future__ import annotations
@@ -24,18 +36,26 @@ import contextlib
 import json
 import os
 import sys
+import tempfile
 import uuid
 from argparse import ArgumentParser
 
 import torch
+import torch.distributed as dist
 
 from ..data.dataset import Scene
 from ..device import resolve_device
+from ..parallel import mesh as pmesh
 from ..utils.config import (ModelConfig, OptimizationConfig, PipelineConfig,
                             add_dataclass_args, extract_dataclass,
                             torch_device_name)
 from ..utils.logging import safe_state
 from .trainer import Trainer
+
+# Ranks the CLI starts itself run for as long as training takes.
+SPAWN_TIMEOUT = None
+# What names a process group that the CLI joins instead of starting one.
+GROUP_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR")
 
 
 def parser() -> ArgumentParser:
@@ -62,11 +82,13 @@ def parser() -> ArgumentParser:
     p.add_argument("--profile", action="store_true",
                    help="write a torch.profiler trace to <model>/trace")
     p.add_argument("--n_data", type=int, default=1,
-                   help="data ranks (not ported yet: must be 1)")
+                   help="camera data-parallel ranks (one camera each per "
+                        "step)")
     p.add_argument("--n_gauss", type=int, default=1,
-                   help="Gaussian-shard ranks (not ported yet: must be 1)")
+                   help="Gaussian-shard ranks (the store split over them)")
     p.add_argument("--tile_shard", action="store_true",
-                   help="tile bands over the gauss ranks (not ported yet)")
+                   help="also split the compositor's tiles into bands over "
+                        "the Gaussian-shard ranks")
     p.add_argument("--init_capacity", type=int, default=None,
                    help="pre-size the Gaussian store")
     p.add_argument("--pin_pair_capacity", type=int, default=None,
@@ -74,12 +96,16 @@ def parser() -> ArgumentParser:
     return p
 
 
-def build_trainer(args) -> Trainer:
-    """The scene and the trainer of a parsed command line, seeded."""
+def build_trainer(args, device=None, mesh=None) -> Trainer:
+    """The scene and the trainer of a parsed command line, seeded; on a
+    mesh, this rank's (only rank 0 writes the scene's files)."""
     model_cfg = extract_dataclass(ModelConfig, args)
-    device = resolve_device(torch_device_name(model_cfg.data_device))
+    if device is None:
+        device = resolve_device(torch_device_name(model_cfg.data_device))
     safe_state(seed=args.seed)
-    scene = Scene(model_cfg.source_path, model_cfg.model_path,
+    writer = mesh is None or mesh.rank == 0
+    scene = Scene(model_cfg.source_path,
+                  model_cfg.model_path if writer else "",
                   images=model_cfg.images, depths=model_cfg.depths,
                   eval_split=model_cfg.eval, resolution=model_cfg.resolution,
                   white_background=model_cfg.white_background,
@@ -89,26 +115,92 @@ def build_trainer(args) -> Trainer:
                    extract_dataclass(PipelineConfig, args), scene,
                    seed=args.seed, quiet=args.quiet,
                    init_capacity=args.init_capacity,
-                   pin_pair_capacity=args.pin_pair_capacity, device=device)
+                   pin_pair_capacity=args.pin_pair_capacity, device=device,
+                   mesh=mesh, tile_shard=args.tile_shard)
 
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
-    if args.n_data * args.n_gauss > 1 or args.tile_shard:
-        raise NotImplementedError(
-            "multi-rank training (--n_data/--n_gauss above 1, --tile_shard) "
-            "is not ported yet (ROADMAP queue 1, item 2)")
+    if args.n_data < 1 or args.n_gauss < 1:
+        raise ValueError(f"--n_data {args.n_data} and --n_gauss "
+                         f"{args.n_gauss} must be at least 1")
     if not args.model_path:
         args.model_path = f"./output/{str(uuid.uuid4())[:10]}"
     device = resolve_device(torch_device_name(args.data_device))
-    print(f"Output folder: {args.model_path} (device {device})")
-    if not args.disable_viewer:
-        print("network viewer: not ported yet (ROADMAP queue 1, item 6); "
-              "training without it")
+    world = args.n_data * args.n_gauss
+    if world == 1:
+        return train(args, device)
+    if any(v in os.environ for v in GROUP_ENV):
+        return join_group(args, world, device)
+    if device.type == "cuda" and torch.cuda.device_count() < world:
+        raise ValueError(f"--n_data {args.n_data} x --n_gauss "
+                         f"{args.n_gauss} needs {world} cards, one per "
+                         f"rank; this machine has {torch.cuda.device_count()}")
+    # spawn pickles the ranks' function by its import path. Under ``python
+    # -m`` this file runs as __main__, which a spawned process does not
+    # import, so the function is taken from the module's importable name.
+    from . import __main__ as importable  # noqa: PLC0415
+    with tempfile.TemporaryDirectory() as tmp:
+        results = pmesh.spawn(world, importable.spawned_rank, args,
+                              backend=pmesh.backend_for(device),
+                              store_dir=tmp, timeout=SPAWN_TIMEOUT)
+    return results[0]
+
+
+def join_group(args, world: int, device: torch.device) -> dict:
+    """Join the process group that the environment names (``torchrun``),
+    on card ``LOCAL_RANK``, and train this rank."""
+    env_world = int(os.environ.get("WORLD_SIZE", -1))
+    if env_world != world:
+        raise ValueError(f"the environment's WORLD_SIZE {env_world} is not "
+                         f"--n_data {args.n_data} x --n_gauss "
+                         f"{args.n_gauss} = {world}")
+    if device.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        if local >= torch.cuda.device_count():
+            raise ValueError(f"LOCAL_RANK {local} names no card: this "
+                             f"machine has {torch.cuda.device_count()}")
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+    pmesh.initialize_multihost(device=device)
+    try:
+        return train(args, device, mesh_of(args, device))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawned_rank(rank: int, world: int, args) -> dict:
+    """One rank that the CLI started (``parallel/mesh.py::spawn`` has
+    joined the group and, over NCCL, picked card `rank`)."""
+    device = resolve_device(torch_device_name(args.data_device))
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    return train(args, device, mesh_of(args, device))
+
+
+def mesh_of(args, device: torch.device) -> pmesh.Mesh:
+    mesh = pmesh.Mesh(args.n_data, args.n_gauss, device=device)
+    if mesh.rank == 0:
+        print(f"Multi-chip mesh: data={args.n_data} gauss={args.n_gauss}"
+              f"{' tile_shard' if args.tile_shard else ''} over "
+              f"{dist.get_world_size()} devices ({mesh.backend})",
+              flush=True)
+    return mesh
+
+
+def train(args, device: torch.device, mesh=None) -> dict:
+    """Train one rank (or the only one) and print its summary on rank
+    0."""
+    writer = mesh is None or mesh.rank == 0
+    if writer:
+        print(f"Output folder: {args.model_path} (device {device})")
+        if not args.disable_viewer:
+            print("network viewer: not ported yet (ROADMAP queue 1: "
+                  "Viewer); training without it")
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
 
-    trainer = build_trainer(args)
+    trainer = build_trainer(args, device, mesh)
     if args.start_checkpoint:
         trainer.restore(args.start_checkpoint)
 
@@ -128,12 +220,13 @@ def main(argv=None) -> dict:
             save_iterations=set(args.save_iterations),
             checkpoint_iterations=set(args.checkpoint_iterations),
             on_iteration=debug_from if args.debug_from >= 0 else None)
-    if args.profile:
-        trace_dir = os.path.join(args.model_path, "trace")
-        os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
     trainer.logger.close()
-    print(f"\nTraining complete: {json.dumps(result)}", flush=True)
+    if writer:
+        if args.profile:
+            trace_dir = os.path.join(args.model_path, "trace")
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        print(f"\nTraining complete: {json.dumps(result)}", flush=True)
     return result
 
 

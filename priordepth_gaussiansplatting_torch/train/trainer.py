@@ -1,16 +1,25 @@
-"""The single-rank training loop (counterpart of the JAX package's
-``train/trainer.py`` without the mesh; reference ``train.py:64-342``).
+"""The training loop (counterpart of the JAX package's ``train/trainer.py``;
+reference ``train.py:64-342``), on one rank or on each rank of a mesh.
 
-Each iteration is one ``train/step.py::make_train_step`` step on the card.
-The loop keeps on the host what must be there: the camera order, the SH
-degree, densification and opacity resets, the pair capacity, evaluation,
-snapshots, checkpoints and logging. A step's metrics stay on the card as
-one (6,) vector and are copied to the host 50 iterations at a time, never
-per step: the step is bound by its kernel launches, and a per-step read
-would stall the host that launches them.
+Each iteration is one ``train/step.py::make_train_step`` step on the card,
+or with a mesh (``parallel/mesh.py::Mesh``) one step of
+``parallel/integrate.py::make_sharded_fns`` on this rank's shard, fed one
+camera per data rank. The loop keeps on the host what must be there: the
+camera order, the SH degree, densification and opacity resets, the pair
+capacity, evaluation, snapshots, checkpoints and logging. A step's metrics
+stay on the card as one (6,) vector and are copied to the host 50
+iterations at a time, never per step: the step is bound by its kernel
+launches, and a per-step read would stall the host that launches them.
+
+On a mesh every rank runs its own Trainer and takes the same host
+decisions in the same order (the camera order, the schedules, the densify
+seeds, the pair-capacity ladder and the skip guard act on metrics that the
+step reduces over the grid), so every rank makes the same collectives.
+Evaluation, snapshots and checkpoints gather the whole state on every
+rank; rank 0 alone writes files and prints progress.
 
 The PriorDepth thesis events (noise injection, the floating-object prune)
-are not ported yet (ROADMAP queue 1, item 4): a run whose iteration range
+are not ported yet (ROADMAP queue 1: Prune): a run whose iteration range
 reaches an enabled one raises before its first step.
 """
 
@@ -28,6 +37,9 @@ from ..core.cameras import Camera
 from ..device import launch_counts, resolve_device
 from ..models import gaussians as gm
 from ..ops import rasterize as raster_ops
+from ..parallel import integrate as par
+from ..parallel import step as pstep
+from ..parallel.mesh import GAUSS_AXIS, all_gather_rows, psum
 from ..utils.config import (ModelConfig, OptimizationConfig, PipelineConfig,
                             save_cfg_args)
 from ..utils.logging import MetricsLogger
@@ -41,34 +53,69 @@ METRICS = ("loss", "l1", "n_active", "num_pairs", "overflow", "skipped")
 
 class Trainer:
     """One scene trained on one device (the card unless the caller names
-    the CPU). ``noise_source``, when set, returns the (2, capacity, 3)
-    split draws of the next densify round in place of the trainer's
-    generator (the tests feed it the JAX trainer's draws)."""
+    the CPU), or this rank's part of a run over `mesh`
+    (``parallel/mesh.py::Mesh``; the device defaults to the mesh's), with
+    ``tile_shard`` splitting the compositor's tiles into bands over the
+    gauss ranks. ``noise_source``, when set, returns the (2, rows, 3) split
+    draws of the next densify round (rows: the store's, or on a mesh this
+    rank's shard's) in place of the trainer's generator (the tests feed it
+    the JAX trainer's draws)."""
 
     def __init__(self, model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                  pipe_cfg: PipelineConfig, scene, seed: int = 0,
                  quiet: bool = False, init_capacity: Optional[int] = None,
-                 pin_pair_capacity: Optional[int] = None, device=None):
+                 pin_pair_capacity: Optional[int] = None, device=None,
+                 mesh=None, tile_shard: bool = False):
         self.model_cfg = model_cfg
         self.opt_cfg = opt_cfg
         self.pipe_cfg = pipe_cfg
         self.scene = scene
-        self.quiet = quiet
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            mesh.device if device is None and mesh is not None else device)
+        self.mesh = mesh
+        self.tile_shard = tile_shard
+        self.n_data = mesh.n_data if mesh is not None else 1
+        self.n_gauss = mesh.n_gauss if mesh is not None else 1
+        # Rank 0 alone writes files and prints progress.
+        self.writer = mesh is None or mesh.rank == 0
+        self.quiet = quiet or not self.writer
         # The camera order comes from Python's generator, as in the JAX
-        # trainer; random backgrounds and split draws from one generator on
-        # the device.
+        # trainer; random backgrounds and split draws (on a mesh: the
+        # densify seeds) from one generator on the device.
         self.rng = random.Random(seed)
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.noise_source: Optional[Callable[[], torch.Tensor]] = None
 
         xyz, colors, _ = scene.point_cloud()
+        capacity = init_capacity
+        if self.n_gauss > 1:
+            # Room for growth in every shard, and equal shards.
+            if capacity is None:
+                n_pts = int(np.asarray(xyz).shape[0])
+                capacity = max(2 ** int(np.ceil(np.log2(max(n_pts * 4,
+                                                            1024)))),
+                               1024, self.n_gauss)
+            capacity = -(-capacity // self.n_gauss) * self.n_gauss
         self.state = gm.create_from_points(
             np.asarray(xyz), np.asarray(colors),
-            num_images=len(scene.train_cameras), capacity=init_capacity,
+            num_images=len(scene.train_cameras), capacity=capacity,
             max_sh_degree=model_cfg.sh_degree,
             spatial_lr_scale=scene.cameras_extent, device=self.device)
         self.opt_state = optim.init_adam(self.state.params)
+        if mesh is not None:
+            # Every rank builds the same global store; interleaving spreads
+            # the live rows over the shards before each rank keeps its own.
+            self.state, self.opt_state = par.interleave_rows(
+                self.state, self.opt_state, self.n_gauss)
+            self.state, self.opt_state = par.place_sharded(
+                self.state, self.opt_state, mesh)
+            # Cameras of mixed sizes or intrinsics are padded onto one
+            # canvas, so that every batch has the same shape.
+            keys = {(c.height, c.width, c.fovx, c.fovy)
+                    for c in scene.train_cameras}
+            self._batch_hw = ((max(c.height for c in scene.train_cameras),
+                               max(c.width for c in scene.train_cameras))
+                              if len(keys) > 1 else None)
         # A pinned pair capacity switches the adaptive ladder off.
         self._pin_pair_capacity = pin_pair_capacity
         self.pair_capacity: Optional[int] = pin_pair_capacity
@@ -81,8 +128,9 @@ class Trainer:
         self.ema_loss = 0.0
         self.history: List[dict] = []
         self._gt_logged = False
-        self.logger = MetricsLogger(model_cfg.model_path)
-        if model_cfg.model_path:
+        self.logger = MetricsLogger(model_cfg.model_path if self.writer
+                                    else "")
+        if model_cfg.model_path and self.writer:
             save_cfg_args(model_cfg.model_path, model_cfg)
         # The consecutive dropped-update guard (see _observe_skip).
         self.consecutive_skips = 0
@@ -91,6 +139,11 @@ class Trainer:
         self.nonfinite_losses = 0
 
     def _make_fns(self, pair_capacity: Optional[int] = None):
+        if self.mesh is not None:
+            return par.make_sharded_fns(
+                self.opt_cfg, self.pipe_cfg, self.mesh,
+                use_trained_exp=self.model_cfg.train_test_exp,
+                tile_shard=self.tile_shard, pair_capacity=pair_capacity)
         return step_lib.make_train_step(
             self.opt_cfg, self.pipe_cfg,
             use_trained_exp=self.model_cfg.train_test_exp,
@@ -104,10 +157,73 @@ class Trainer:
             self.rng.shuffle(self._camera_stack)
         return self._camera_stack.pop()
 
+    def pick_camera_batch(self) -> list:
+        """One camera per data rank, in the order of the shared stack,
+        stacked for the sharded step (padded when sizes differ)."""
+        cams = [self.pick_camera() for _ in range(self.n_data)]
+        if self._batch_hw is not None:
+            return pstep.pad_camera_batch(cams, target_hw=self._batch_hw)
+        return pstep.stack_cameras(cams)
+
     def restore(self, path: str) -> None:
-        self.state, self.opt_state, self.iteration = ckpt.load_checkpoint(
+        """Load a checkpoint of either package. On a mesh with n_gauss > 1
+        its active rows are compacted and interleaved first, so that the
+        shards come out balanced whether the checkpoint was written by a
+        single rank (live rows at the front) or by a sharded run (with
+        densify holes)."""
+        state, opt_state, self.iteration = ckpt.load_checkpoint(
             path, device=self.device)
-        print(f"Restored checkpoint at iteration {self.iteration}")
+        if self.mesh is not None:
+            if self.n_gauss > 1:
+                state, opt_state = par.pad_capacity_to_multiple(
+                    state, opt_state, self.n_gauss)
+                state, opt_state = par.compact_rows(state, opt_state)
+                state, opt_state = par.interleave_rows(state, opt_state,
+                                                       self.n_gauss)
+            state, opt_state = par.place_sharded(state, opt_state, self.mesh)
+        self.state, self.opt_state = state, opt_state
+        shards = ""
+        if self.mesh is not None:
+            counts = all_gather_rows(state.num_active.reshape(1), self.mesh,
+                                     GAUSS_AXIS)
+            shards = f" (active rows per shard: {counts.tolist()})"
+        if self.writer:
+            print(f"Restored checkpoint at iteration {self.iteration}"
+                  f"{shards}")
+
+    @property
+    def capacity(self) -> int:
+        """Rows of the whole store (on a mesh, over every shard)."""
+        return self.state.capacity * self.n_gauss
+
+    def num_active(self) -> int:
+        """Active rows of the whole store (on a mesh a collective: every
+        rank calls it)."""
+        if self.mesh is None:
+            return int(self.state.num_active)
+        return int(psum(self.state.num_active, self.mesh, GAUSS_AXIS))
+
+    def gathered(self):
+        """(state, opt_state) of the whole store: on a mesh gathered from
+        the shards on every rank (a collective)."""
+        if self.mesh is None:
+            return self.state, self.opt_state
+        return par.gather_sharded(self.state, self.opt_state, self.mesh)
+
+    def _grow(self):
+        if self.mesh is not None:
+            return par.grow_sharded(self.state, self.opt_state, self.mesh)
+        return ckpt.maybe_grow(self.state, self.opt_state)
+
+    def _densify_draws(self) -> dict:
+        """Where a densify round's split draws come from: on one rank the
+        generator itself; on a mesh a seed drawn from it, the same on every
+        rank, into which each gauss rank folds its own index."""
+        if self.mesh is None:
+            return {"generator": self.generator}
+        return {"seed": int(torch.randint(2 ** 31 - 1, (),
+                                          generator=self.generator,
+                                          device=self.device))}
 
     def _check_thesis_events(self, first: int, last: int) -> None:
         opt = self.opt_cfg
@@ -117,7 +233,7 @@ class Trainer:
                 raise NotImplementedError(
                     f"{name}={it} falls in this run (iterations {first}-"
                     f"{last}), but the thesis events are not ported yet "
-                    "(ROADMAP queue 1, item 4); pass --noise_injection_iter "
+                    "(ROADMAP queue 1: Prune); pass --noise_injection_iter "
                     "0 --floating_prune_iter 0")
 
     def _metrics_vector(self, metrics: dict) -> torch.Tensor:
@@ -146,7 +262,8 @@ class Trainer:
             if it % 1000 == 0:
                 self.state = self.state.oneup_sh_degree()
 
-            cam = self.pick_camera()
+            cam = (self.pick_camera_batch() if self.mesh is not None
+                   else self.pick_camera())
             self.state, self.opt_state, metrics = self.fns.step(
                 self.state, self.opt_state, cam, it, self.generator, self.bg)
 
@@ -159,12 +276,11 @@ class Trainer:
                     self.state, self.opt_state, _ = self.fns.densify(
                         self.state, self.opt_state,
                         use_size_threshold=it > opt.opacity_reset_interval,
-                        noise=noise, generator=self.generator)
-                    self.state, self.opt_state, grew = ckpt.maybe_grow(
-                        self.state, self.opt_state)
+                        noise=noise, **self._densify_draws())
+                    self.state, self.opt_state, grew = self._grow()
                     if grew and not self.quiet:
                         print(f"[it {it}] capacity grown to "
-                              f"{self.state.capacity}")
+                              f"{self.capacity}")
                 if (it % opt.opacity_reset_interval == 0
                         or (self.model_cfg.white_background
                             and it == opt.densify_from_iter)):
@@ -184,16 +300,13 @@ class Trainer:
             if it in save_iterations and self.model_cfg.model_path:
                 self.save_snapshot(it)
             if it in checkpoint_iterations and self.model_cfg.model_path:
-                ckpt.save_checkpoint(
-                    os.path.join(self.model_cfg.model_path,
-                                 f"chkpnt{it}.pkl"),
-                    self.state, self.opt_state, it)
+                self.save_checkpoint(it)
             if on_iteration is not None:
                 on_iteration(self, it, metrics)
         wall = time.time() - t_start
         return {"iterations": total, "iterations_run": total - first + 1,
                 "wall_s": wall, "final_loss": self.ema_loss,
-                "n_active": int(self.state.num_active),
+                "n_active": self.num_active(),
                 "skipped": self.total_skips,
                 "step_launches": {k: v - base[k]
                                   for k, v in launch_counts().items()
@@ -236,7 +349,7 @@ class Trainer:
 
     def _effective_pair_capacity(self) -> int:
         return (self.pair_capacity
-                or raster_ops.default_pair_capacity(self.state.capacity))
+                or raster_ops.default_pair_capacity(self.capacity))
 
     def _adapt_pair_capacity(self, num_pairs: int, overflow: int) -> None:
         """Size the pair lists from the observed pair count: 1.5x headroom
@@ -273,7 +386,8 @@ class Trainer:
             return
         self.consecutive_skips += 1
         self.total_skips += 1
-        if self.total_skips <= 5 or self.consecutive_skips in (5, 10, 20):
+        if self.writer and (self.total_skips <= 5
+                            or self.consecutive_skips in (5, 10, 20)):
             cause = ("pair overflow" if overflow > 0
                      else f"non-finite loss ({loss})")
             print(f"[it {it}] WARNING: update skipped ({cause}); "
@@ -284,9 +398,10 @@ class Trainer:
         if overflow > 0:
             effective = self._effective_pair_capacity()
             grown = raster_ops.round_capacity(effective + 1)
-            print(f"[it {it}] pair capacity auto-grown {effective} -> "
-                  f"{grown} after {self.consecutive_skips} consecutive "
-                  "overflow skips", flush=True)
+            if self.writer:
+                print(f"[it {it}] pair capacity auto-grown {effective} -> "
+                      f"{grown} after {self.consecutive_skips} consecutive "
+                      "overflow skips", flush=True)
             if self._pin_pair_capacity is not None:
                 self._pin_pair_capacity = grown
             self.pair_capacity = grown
@@ -305,7 +420,9 @@ class Trainer:
         views (``train.py:402-445``), their first five images, and the
         opacity histogram. Each view renders at the default pair capacity of
         the store, as in the JAX trainer; a view that overflows it is
-        reported, and its PSNR reads low."""
+        reported, and its PSNR reads low. On a mesh every rank gathers the
+        store and evaluates it; rank 0 logs."""
+        state, _ = self.gathered()
         out = {}
         for split, cams in (("test", self.scene.test_cameras),
                             ("train", self.scene.train_cameras[:5])):
@@ -314,7 +431,7 @@ class Trainer:
             psnrs, l1s = [], []
             for vi, cam in enumerate(cams):
                 r = step_lib.eval_image(
-                    cam, self.state, self.bg,
+                    cam, state, self.bg,
                     antialiasing=self.pipe_cfg.antialiasing,
                     use_trained_exp=self.model_cfg.train_test_exp,
                     backend=self.pipe_cfg.backend)
@@ -351,14 +468,25 @@ class Trainer:
                           f"psnr {out[split]['psnr']:.2f} "
                           f"l1 {out[split]['l1']:.4f}", flush=True)
         self._gt_logged = True
-        active = self.state.active
+        active = state.active
         self.logger.histogram("scene/opacity_histogram",
-                              self.state.get_opacity()[active], it)
+                              state.get_opacity()[active], it)
         self.logger.scalar("total_points", float(active.sum()), it)
         self.history.append({"iteration": it, **out})
         return out
 
     def save_snapshot(self, it: int) -> None:
-        print(f"[it {it}] saving snapshot", flush=True)
-        ckpt.save_model_snapshot(self.model_cfg.model_path, it, self.state,
-                                 image_names=self.scene.exposure_ids)
+        state, _ = self.gathered()
+        if self.writer:
+            print(f"[it {it}] saving snapshot", flush=True)
+            ckpt.save_model_snapshot(self.model_cfg.model_path, it, state,
+                                     image_names=self.scene.exposure_ids)
+
+    def save_checkpoint(self, it: int) -> None:
+        """``<model>/chkpnt<it>.pkl``: on a mesh the gathered store, written
+        once."""
+        state, opt_state = self.gathered()
+        if self.writer:
+            ckpt.save_checkpoint(
+                os.path.join(self.model_cfg.model_path, f"chkpnt{it}.pkl"),
+                state, opt_state, it)

@@ -110,6 +110,11 @@ def _densify_probe(tmp_path):
     densify_probe.main([str(tmp_path / "chkpnt1.pkl"), "-s", str(tmp_path)])
 
 
+def _bench():
+    from priordepth_gaussiansplatting_torch import bench
+    bench.run(64, 32, 32, 1, None)
+
+
 def _trainer():
     from priordepth_gaussiansplatting_torch.train import trainer
     from priordepth_gaussiansplatting_torch.utils import config
@@ -128,7 +133,8 @@ def _load_checkpoint(tmp_path):
                                    "adam_state_from_numpy",
                                    "initialize_multihost", "train_cli",
                                    "perf_probe", "trainer",
-                                   "load_checkpoint", "densify_probe"])
+                                   "load_checkpoint", "densify_probe",
+                                   "bench"])
 def test_entry_points_need_the_card_or_cpu(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -146,6 +152,7 @@ def test_entry_points_need_the_card_or_cpu(entry, tmp_path):
         "trainer": _trainer,
         "load_checkpoint": lambda: _load_checkpoint(tmp_path),
         "densify_probe": lambda: _densify_probe(tmp_path),
+        "bench": _bench,
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

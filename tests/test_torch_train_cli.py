@@ -2,8 +2,8 @@
 train``) and its stage probe (``python -m priordepth_gaussiansplatting_
 torch.perf_probe``) on the CPU: a 20-iteration run through the tile
 pipeline's plain versions with its artifacts, a resume from its checkpoint,
-and the refusals of what is not ported yet (the thesis events at their
-default iterations, multi-rank flags)."""
+the refusal of what is not ported yet (the thesis events at their default
+iterations) and of multi-rank grids that cannot run."""
 
 import dataclasses
 import json
@@ -134,29 +134,53 @@ def test_step_launches_leave_out_the_reports(scene_dir, monkeypatch):
 def test_train_cli_refuses_the_default_thesis_events(scene_dir, tmp_path):
     """30,000 iterations reach the noise injection at its default 30,000:
     the run raises before its first step instead of skipping it."""
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Prune"):
         train_cli.main(["-s", scene_dir, "-m", str(tmp_path / "m"),
                         "--data_device", "cpu", "--disable_viewer",
                         "--quiet"])
     assert not os.path.exists(tmp_path / "m" / "chkpnt30000.pkl")
 
 
-@pytest.mark.parametrize("flags", [["--n_gauss", "2"], ["--n_data", "2"],
-                                   ["--tile_shard"]])
-def test_train_cli_refuses_multi_rank(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        train_cli.main(["-s", str(tmp_path), "--data_device", "cpu"] + flags)
+# Multi-rank runs the CLI refuses: a process group of another size than
+# n_data x n_gauss, more ranks than the machine has cards, an empty grid.
+REFUSALS = [
+    dict(argv=["--n_gauss", "2", "--data_device", "cpu"],
+         env={"WORLD_SIZE": "3", "RANK": "0", "MASTER_ADDR": "localhost"},
+         match="WORLD_SIZE 3 is not --n_data 1 x --n_gauss 2"),
+    dict(argv=["--n_data", "2"], env={}, cards=1,
+         match="needs 2 cards, one per rank; this machine has 1"),
+    dict(argv=["--tile_shard", "--n_gauss", "0", "--data_device", "cpu"],
+         env={}, match="must be at least 1"),
+]
+
+
+@pytest.mark.parametrize("flags", REFUSALS)
+def test_train_cli_refuses_multi_rank(flags, tmp_path, monkeypatch):
+    for var in train_cli.GROUP_ENV:
+        monkeypatch.delenv(var, raising=False)
+    for var, value in flags["env"].items():
+        monkeypatch.setenv(var, value)
+    if "cards" in flags:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count",
+                            lambda: flags["cards"])
+    with pytest.raises(ValueError, match=flags["match"]):
+        train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "m")]
+                       + flags["argv"])
+    assert not os.path.exists(tmp_path / "m")
 
 
 def test_train_cli_module_entry_point(tmp_path):
     """``python -m`` reaches the same main (and fails as it should)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in train_cli.GROUP_ENV}
     out = subprocess.run(
         [sys.executable, "-m", "priordepth_gaussiansplatting_torch.train",
          "-s", str(tmp_path), "--data_device", "cpu", "--n_gauss", "2"],
-        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
-        text=True, timeout=120)
+        cwd=REPO, env=dict(env, PYTHONPATH=REPO, **REFUSALS[0]["env"]),
+        capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
-    assert "not ported yet" in out.stderr
+    assert "WORLD_SIZE 3 is not --n_data 1 x --n_gauss 2" in out.stderr
 
 
 def test_densify_probe_on_the_cpu(scene_dir, tmp_path, capsys):
