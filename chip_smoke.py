@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # one card, every phase below
     python3 chip_smoke.py --ranks 4  # only the multi-rank phases, 4 cards
     python3 chip_smoke.py --turns DIR  # only K7 and K1 against DIR's
+    python3 chip_smoke.py --phases thesis metrics  # device, train_cli, these
 
 Builds the port's CUDA kernels from ``priordepth_gaussiansplatting_torch/
 csrc/`` (one nvcc per source, in parallel), then runs, printing one JSON
@@ -83,7 +84,30 @@ line per phase:
      to the first densify round that trainer's equal to the train_cli
      run's logged ones; a resume from its iteration-500 checkpoint for 20
      iterations, and its it/s beside train_cli's;
- 14. kernels: one object per kernel (the line before the card's line).
+ 14. thesis: train_cli's scene with inverse-depth priors (16-bit PNGs under
+     ``depths/``, from the scene tool's own ``camera_pose`` and
+     ``render_view``) through the train CLI with ``-d depths`` for 1,000
+     iterations, the noise injection at 700 (+6 active rows) and the
+     floating-object prune at 900 (its deletions and views printed, each
+     view rendered through K1, K5a and K2, none overflowing its pair
+     capacity, no update skipped, held-out PSNR logged); then from the
+     checkpoint at 899 ``train/prune.py::prune_loop`` with one RandomState
+     seed three times: on the card through the kernels, on the card through
+     their plain versions, and on the CPU; each run's deletion history is
+     printed, and the final active masks must agree except on rows whose
+     rendered inverse depth lay within 2e-5 of a threshold (or whose centre
+     lay within 1e-4 px of a pixel edge) in a view of either run, which are
+     counted; then one prune view at full width (view 0 of the full scene,
+     a prior of sky on its left half, nearer than every Gaussian on its
+     right, so that about half the rows it judges go): the kernel
+     render's mask against the plain render's, counted the same way, and
+     the time of render + ``prune_view`` by CUDA events;
+ 15. metrics: ``python -m priordepth_gaussiansplatting_torch.metrics`` on the
+     render CLI's output of train_cli (its held-out views at 1,000) with
+     random VGG16 LPIPS weights written from a numpy seed, on the card
+     against ``--device cpu`` (PSNR and SSIM within 1e-4, LPIPS rtol 1e-3),
+     and its PSNR beside the trainer's report for the same views;
+ 16. kernels: one object per kernel (the line before the card's line).
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -101,9 +125,15 @@ batch's views of their gradients, its own rows, gradient tolerance), then
 10 steps with every launch count and guard checked, and the time per step
 beside the single-rank step's on the same card. Then phase multi_cli: the
 train CLI itself, starting its N ranks, on train_cli's scene for 500
-iterations over (1, N) with tile bands and, for N = 4, (2, 2) (it/s and
-held-out PSNR), and a single-rank checkpoint restored over (1, N), whose
-shards' active rows differ by at most one.
+iterations over (1, N) with tile bands and, for N = 4, (2, 2) with the
+depth priors and both thesis events (at 300 and 400; every rank's active
+count the same after each), it/s and held-out PSNR, and a single-rank
+checkpoint restored over (1, N), whose shards' active rows differ by at
+most one.
+
+With ``--phases NAME ...`` it builds the kernels and runs phase device,
+train_cli and the named ones of mesh_train, thesis and metrics, without
+the kernels line.
 
 Any failure raises: the script exits non-zero, and it does so before
 printing a result when there is no CUDA card or when the port is not
@@ -136,9 +166,11 @@ and the direct enumeration.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -201,8 +233,23 @@ WIDE_W, WIDE_H, WIDE_N = 4096, 256, 2000
 CLI_SCENE = (512, 32)
 CLI_ITERS, CLI_CHECK, CLI_RESUME = 1000, 500, 20
 CLI_CAPACITY, CLI_PAIRS = 1 << 18, 1 << 20
-# --ranks: the train CLI's iterations on train_cli's scene per rank grid.
+# --ranks: the train CLI's iterations on train_cli's scene per rank grid,
+# and the thesis events of its (2, 2) run.
 MULTI_CLI_ITERS = 500
+MULTI_INJECT, MULTI_PRUNE = 300, 400
+# thesis: the events of train_cli's run with priors (the prune loops start
+# from the checkpoint before the prune, with one RandomState seed), the
+# render tolerance on inverse depth that excuses a row's prune decision,
+# and the distance to a pixel edge within which devices may read another
+# pixel; at full width the prior inverse depth of view 0's left half (sky)
+# and right half (nearer than every Gaussian), and the scene extent.
+THESIS_INJECT, THESIS_PRUNE, THESIS_SEED = 700, 900, 900
+INVDEPTH_TOL, EDGE_TOL_PX = 2e-5, 1e-4
+FULL_PRIOR, FULL_EXTENT = (0.0, 2.0), 0.5
+# metrics: the card's results against the CPU's.
+METRICS_ATOL, LPIPS_RTOL = 1e-4, 1e-3
+# The phases that --phases may select, in their order.
+CLI_PHASES = ("train_cli", "mesh_train", "thesis", "metrics")
 GRAD_ATOL, GRAD_RTOL = 3e-4, 2e-3
 
 
@@ -269,6 +316,39 @@ def run_readings(events, lo: int, hi: int):
     return (tag("test/loss_viewpoint - psnr"),
             tag("train/loss_viewpoint - psnr"),
             (hi - lo) / (clock[hi] - clock[lo]))
+
+
+def synthetic_tool():
+    """``tools/make_synthetic_scene.py`` as a module (its ``camera_pose``
+    and ``render_view`` import nothing of the JAX package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_synthetic_scene",
+        os.path.join(REPO, "tools", "make_synthetic_scene.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def random_vgg16_npz(path: str, seed: int = 0) -> None:
+    """VGG16-shaped random LPIPS weights (torchvision's feature indices,
+    the five linear heads), drawn with numpy from `seed`."""
+    rng = np.random.default_rng(seed)
+    arrays, cin, layer = {}, 3, 0
+    for item in [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+                 512, 512, 512, "M", 512, 512, 512, "M"]:
+        if item == "M":
+            layer += 1
+            continue
+        arrays[f"features.{layer}.weight"] = (rng.standard_normal(
+            (item, cin, 3, 3), dtype=np.float32) / np.sqrt(9 * cin))
+        arrays[f"features.{layer}.bias"] = 0.1 * rng.standard_normal(
+            item, dtype=np.float32)
+        cin, layer = item, layer + 2
+    for k, c in enumerate((64, 128, 256, 512, 512)):
+        arrays[f"lin{k}.model.1.weight"] = np.abs(rng.standard_normal(
+            (1, c, 1, 1), dtype=np.float32)) / c
+    np.savez(path, **arrays)
 
 
 def read_events(model: str) -> list:
@@ -1972,11 +2052,12 @@ class Smoke:
              width=FULL_W, height=FULL_H, k7_p_cap=BIN_P, k1_p_cap=p_cap,
              pairs=int(x["total"]), turns=rows)
 
-    def run_cmd(self, cmd, timeout: int) -> str:
-        """Run `cmd` from the repo root; its stdout, or raise with the end
-        of its output."""
+    def run_cmd(self, cmd, timeout: int, env=None) -> str:
+        """Run `cmd` from the repo root (with `env` added to the
+        environment); its stdout, or raise with the end of its output."""
         out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                             env=dict(os.environ, PYTHONPATH=REPO),
+                             env=dict(os.environ, PYTHONPATH=REPO,
+                                      **(env or {})),
                              timeout=timeout)
         if out.returncode != 0:
             raise RuntimeError(f"{cmd[:4]} exited {out.returncode}:\n"
@@ -2038,8 +2119,9 @@ class Smoke:
         self.run_cmd([sys.executable, "tools/make_synthetic_scene.py",
                       scene, str(size), str(views)], 600)
         scene_s = time.perf_counter() - t0
+        # The model stays for phase metrics.
+        model = self.cli_model = os.path.join(self.work, "cli_model")
         with tempfile.TemporaryDirectory() as tmp:
-            model = os.path.join(tmp, "model")
             run = self.train_cli(
                 ["-s", scene, "-m", model, "--iterations", str(CLI_ITERS),
                  "--test_iterations", str(CLI_CHECK), str(CLI_ITERS),
@@ -2063,9 +2145,10 @@ class Smoke:
                  os.path.join(model, f"chkpnt{CLI_CHECK}.pkl")])
             assert resumed["iterations_run"] == CLI_RESUME
             t0 = time.perf_counter()
-            self.run_cmd([sys.executable, "-m",
-                          "priordepth_gaussiansplatting_torch.render", "-m",
-                          model, "--skip_train"], 600)
+            rendered = self.run_cmd([sys.executable, "-m",
+                                     "priordepth_gaussiansplatting_torch."
+                                     "render", "-m", model, "--skip_train"],
+                                    600)
             render_s = time.perf_counter() - t0
             from PIL import Image
             rdir = os.path.join(model, "test", f"ours_{CLI_ITERS}", "renders")
@@ -2084,7 +2167,9 @@ class Smoke:
              resumed=dict(iterations_run=resumed["iterations_run"],
                           skipped=resumed["skipped"],
                           wall_s=resumed["wall_s"]),
-             renders=len(pngs), render_cli_s=render_s)
+             renders=len(pngs), render_cli_s=render_s,
+             render_cli_overflowed_views=rendered.count(
+                 "overflowed the pair capacity"))
 
     def phase_bench(self):
         """The bench entry as a user runs it: ``bench.py``'s workload and
@@ -2222,6 +2307,317 @@ class Smoke:
              resumed=dict(iterations_run=res2["iterations_run"],
                           skipped=res2["skipped"], wall_s=res2["wall_s"]))
 
+    # --- the thesis events and the evaluation CLI ---------------------------
+
+    def prune_near(self, st, terms, extent: float):
+        """(near_depth, near_edge) of one prune view: the valid rows whose
+        rendered inverse depth lies within INVDEPTH_TOL of a value at which
+        one of the floating tests flips (k = 1, b = 0), and the valid rows
+        whose centre lies within EDGE_TOL_PX of a pixel edge (another
+        device may read the next pixel)."""
+        t = self.torch
+        from priordepth_gaussiansplatting_torch.train import prune
+        inv = terms.rend_invdepth
+        inf = t.full_like(inv, float("inf"))
+        geo = t.prod(st.get_scaling(), dim=1) ** (1.0 / 3.0)
+        margin = inf
+        for depth in (terms.mono_depth - extent, terms.cam_z - geo):
+            flip = 1.0 / depth - prune.EPSILON
+            margin = t.minimum(margin, t.where(depth > 0,
+                                               (inv - flip).abs(), inf))
+        edge = t.minimum((terms.px - t.round(terms.px)).abs(),
+                         (terms.py - t.round(terms.py)).abs())
+        return (terms.valid & (margin < INVDEPTH_TOL),
+                terms.valid & (edge < EDGE_TOL_PX))
+
+    def prune_run(self, ck: str, scene: str, device, plain: bool = False):
+        """``prune_loop`` from checkpoint `ck` over `scene`'s training views
+        and priors on `device`, rendered as the trainer renders them (the
+        default pair capacity; on the card through the kernels, or with
+        `plain` their plain versions), RandomState(THESIS_SEED). Returns
+        its totals, final mask, the rows near a threshold in any of its
+        views, launches and seconds."""
+        t, k = self.torch, self.kernels
+        from priordepth_gaussiansplatting_torch.data.dataset import Scene
+        from priordepth_gaussiansplatting_torch.train import checkpoint, prune
+        sc = Scene(scene, depths="depths", eval_split=True, device=device)
+        state, opt, _ = checkpoint.load_checkpoint(ck, device=device)
+        bg = t.zeros(3, device=device)
+        near = [t.zeros(state.capacity, dtype=t.bool, device=device)] * 2
+        overflow = []
+
+        def rfn(cam, st):
+            out = self.render.render(cam, st, bg, backend="kernels")
+            overflow.append(int(out["overflow"]))
+            terms = prune.view_terms(st, cam, out["invdepth"], out["radii"])
+            d, e = self.prune_near(st, terms, sc.cameras_extent)
+            near[0], near[1] = near[0] | d, near[1] | e
+            return out["invdepth"], out["radii"]
+
+        card = device.type == "cuda"
+        if card:
+            t.cuda.synchronize()
+        k.reset_launch_counts()
+        t0 = time.perf_counter()
+        with (self.plain_kernels() if plain else contextlib.nullcontext()):
+            state, opt, info = prune.prune_loop(
+                state, opt, sc.train_cameras, rfn, sc.cameras_extent,
+                rng=np.random.RandomState(THESIS_SEED))
+        if card:
+            t.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = k.launch_counts()
+        assert not any(overflow), f"a prune view overflowed: {overflow}"
+        return dict(info=info, active=state.active.cpu().numpy(),
+                    near_depth=near[0].cpu().numpy(),
+                    near_edge=near[1].cpu().numpy(), seconds=seconds,
+                    launches={n: launches[n] for n in FORWARD},
+                    n_active=int(state.num_active))
+
+    @staticmethod
+    def masks_agree(a: dict, b: dict) -> dict:
+        """Two prune results' masks must agree except on rows near a
+        threshold (or a pixel edge) in a view of either; the counts."""
+        differ = a["active"] != b["active"]
+        near_depth = a["near_depth"] | b["near_depth"]
+        near_edge = (a["near_edge"] | b["near_edge"]) & ~near_depth
+        bad = np.nonzero(differ & ~near_depth & ~near_edge)[0]
+        assert not len(bad), (f"{len(bad)} rows decided otherwise with no "
+                              f"threshold near: {bad[:20].tolist()}")
+        return dict(rows_differ=int(differ.sum()),
+                    differ_near_depth=int((differ & near_depth).sum()),
+                    differ_near_edge=int((differ & near_edge).sum()),
+                    rows_near_depth=int(near_depth.sum()),
+                    rows_near_edge=int(near_edge.sum()))
+
+    def prune_full_width(self) -> dict:
+        """One prune_view on view 0 of the full scene with a prior of sky on
+        its left half and nearer than every Gaussian on its right: the
+        kernel render's mask against the plain render's, and the time of
+        render + prune_view."""
+        t, T, k = self.torch, self.testing, self.kernels
+        from priordepth_gaussiansplatting_torch.train import prune
+        g = T.random_gaussians(0, FULL_N, extent=1.0,
+                               scale_range=(0.001, 0.004))
+        state = self.state(g)
+        opt = self.optim.init_adam(state.params)
+        prior = np.full((FULL_H, FULL_W), FULL_PRIOR[1], np.float32)
+        prior[:, :FULL_W // 2] = FULL_PRIOR[0]
+        cam = T.look_at_camera(FULL_EYES[0], width=FULL_W, height=FULL_H,
+                               device=self.dev, invdepth=prior,
+                               depth_reliable=True)
+        bg = t.zeros(3, device=self.dev)
+
+        def view():
+            out = self.render.render(cam, state, bg, antialiasing=True,
+                                     backend="kernels")
+            st, _, _, n_del = prune.prune_view(
+                state, opt, prune.FeatureTable.empty(device=self.dev), cam,
+                out["invdepth"], out["radii"], FULL_EXTENT)
+            return st, n_del, out
+
+        res = {}
+        for name in ("kernels", "plain"):
+            with (self.plain_kernels() if name == "plain"
+                  else contextlib.nullcontext()):
+                t.cuda.synchronize()
+                k.reset_launch_counts()
+                st, n_del, out = view()
+                t.cuda.synchronize()
+                launches = k.launch_counts()
+                assert int(out["overflow"]) == 0
+                terms = prune.view_terms(state, cam, out["invdepth"],
+                                         out["radii"])
+                d, e = self.prune_near(state, terms, FULL_EXTENT)
+                res[name] = dict(active=st.active.cpu().numpy(),
+                                 near_depth=d.cpu().numpy(),
+                                 near_edge=e.cpu().numpy(),
+                                 deleted=int(n_del),
+                                 valid=int(terms.valid.sum()),
+                                 launches={n: launches[n] for n in FORWARD})
+        assert res["kernels"]["launches"] == dict.fromkeys(FORWARD, 1), res
+        assert not any(res["plain"]["launches"].values()), res
+        agree = self.masks_agree(res["kernels"], res["plain"])
+        deleted = res["kernels"]["deleted"]
+        # A real share: at least 1 % of the rows the view judges (a row
+        # behind others reads a nearer rendered depth and stays).
+        assert deleted >= 0.01 * res["kernels"]["valid"], res["kernels"]
+        ms = cuda_ms(t, view, reps=10)
+        return dict(n=FULL_N, width=FULL_W, height=FULL_H, prior=FULL_PRIOR,
+                    extent=FULL_EXTENT, deleted=deleted,
+                    deleted_plain=res["plain"]["deleted"],
+                    valid=res["kernels"]["valid"],
+                    launches=res["kernels"]["launches"],
+                    render_and_prune_view_ms=ms, **agree)
+
+    def phase_thesis(self):
+        """The thesis events through the train CLI on train_cli's scene
+        with depth priors, then the prune loop from the checkpoint before
+        the prune on the card with the kernels, on the card with their
+        plain versions and on the CPU; then one prune view at full
+        width."""
+        t = self.torch
+        size, views = CLI_SCENE
+        scene = self.cli_scene
+        t0 = time.perf_counter()
+        self.testing.write_depth_priors(scene, size, views, synthetic_tool())
+        priors_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            model = os.path.join(tmp, "model")
+            evals = [CLI_CHECK, THESIS_INJECT - 1, THESIS_INJECT,
+                     THESIS_PRUNE - 1, THESIS_PRUNE, CLI_ITERS]
+            run = self.train_cli(
+                ["-s", scene, "-m", model, "-d", "depths",
+                 "--iterations", str(CLI_ITERS),
+                 "--test_iterations"] + [str(i) for i in evals] + [
+                 "--save_iterations", str(CLI_ITERS),
+                 "--checkpoint_iterations", str(THESIS_PRUNE - 1),
+                 "--noise_injection_iter", str(THESIS_INJECT),
+                 "--floating_prune_iter", str(THESIS_PRUNE)])
+            assert run["iterations_run"] == CLI_ITERS
+            inj, prn = run["events"]
+            assert (inj["event"], inj["iteration"]) == ("inject",
+                                                        THESIS_INJECT)
+            assert inj["n_active"] == inj["n_active_before"] + 6, inj
+            assert inj["launches"] == {}, inj
+            assert (f"[it {THESIS_INJECT}] injected noise gaussians "
+                    f"(n_active={inj['n_active']}, +6)") in run["out"]
+            assert (prn["event"], prn["iteration"]) == ("prune",
+                                                        THESIS_PRUNE)
+            assert prn["overflowed_views"] == 0, prn
+            rendered = len(prn["history"])
+            assert rendered >= views * 7 // 8 and prn["deleted"] >= 1, prn
+            assert prn["launches"] == dict.fromkeys(FORWARD, rendered), prn
+            assert (f"[it {THESIS_PRUNE}] floating-object prune: deleted "
+                    f"{prn['deleted']} over {prn['views']} views"
+                    ) in run["out"]
+            ev = read_events(model)
+            psnr, train_psnr, steady = run_readings(ev, CLI_CHECK + 50,
+                                                    THESIS_INJECT - 50)
+            _, _, with_events = run_readings(ev, CLI_CHECK + 50,
+                                             CLI_ITERS - 50)
+            assert sorted(psnr) == evals, psnr
+            assert all(np.isfinite(v) for v in psnr.values()), psnr
+
+            # The CPU's loop runs in a process of its own meanwhile.
+            ck = os.path.join(model, f"chkpnt{THESIS_PRUNE - 1}.pkl")
+            with concurrent.futures.ProcessPoolExecutor(
+                    1, mp_context=multiprocessing.get_context("spawn")) as ex:
+                cpu = ex.submit(prune_on_cpu, ck, scene)
+                loops = {"kernels": self.prune_run(ck, scene, self.dev),
+                         "plain": self.prune_run(ck, scene, self.dev,
+                                                 plain=True)}
+                full = self.prune_full_width()
+                loops["cpu"] = cpu.result()
+        n = len(loops["kernels"]["info"]["history"])
+        assert loops["kernels"]["launches"] == dict.fromkeys(FORWARD, n)
+        for name in ("plain", "cpu"):
+            assert not any(loops[name]["launches"].values()), loops[name]
+        agree = {f"kernels_vs_{name}": self.masks_agree(loops["kernels"],
+                                                        loops[name])
+                 for name in ("plain", "cpu")}
+        emit("thesis", ok=True, scene=dict(size=size, views=views,
+                                           priors_s=priors_s),
+             iterations=CLI_ITERS, wall_s=run["wall_s"],
+             it_per_s_before_events=steady,
+             it_per_s_with_events=with_events,
+             train_cli_it_per_s=self.results["train_cli"][
+                 "it_per_s_between_evals"],
+             inject={k: inj[k] for k in ("iteration", "n_active_before",
+                                         "n_active", "seconds")},
+             prune={k: prn[k] for k in ("iteration", "n_active_before",
+                                        "n_active", "deleted", "views",
+                                        "history", "overflowed_views",
+                                        "launches", "seconds")},
+             step_launches=run["step_launches"], skipped=run["skipped"],
+             test_psnr=psnr, train_psnr=train_psnr,
+             loops_from=f"chkpnt{THESIS_PRUNE - 1}", seed=THESIS_SEED,
+             loops={name: dict(history=r["info"]["history"],
+                               deleted=r["info"]["total_deleted"],
+                               views=r["info"]["epochs"],
+                               n_active=r["n_active"], seconds=r["seconds"],
+                               launches=r["launches"])
+                    for name, r in loops.items()},
+             masks=agree, full_width=full)
+
+    def phase_metrics(self):
+        """The metrics CLI on the render CLI's output of phase train_cli
+        (its held-out views at CLI_ITERS), with random VGG16 LPIPS weights:
+        on the card against ``--device cpu``, and its PSNR beside the
+        trainer's report for the same views and iteration."""
+        model = self.cli_model
+        weights = os.path.join(self.work, "lpips_random.npz")
+        random_vgg16_npz(weights)
+        method = f"ours_{CLI_ITERS}"
+        res, seconds = {}, {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            out = self.run_cmd(
+                [sys.executable, "-m", "priordepth_gaussiansplatting_torch."
+                 "metrics", "-m", model, "--device", device], 600,
+                env={"PDGS_LPIPS_WEIGHTS": weights})
+            seconds[device] = time.perf_counter() - t0
+            assert "WARNING" not in out and "LPIPS:" in out, out
+            with open(os.path.join(model, "results.json")) as f:
+                res[device] = json.load(f)[method]
+            with open(os.path.join(model, "per_view.json")) as f:
+                res[device + "_views"] = json.load(f)[method]
+        card, cpu = res["cuda"], res["cpu"]
+        assert set(card) == set(cpu) == {"SSIM", "PSNR", "LPIPS"}, res
+        for key in ("SSIM", "PSNR"):
+            assert abs(card[key] - cpu[key]) <= METRICS_ATOL, (key, res)
+        assert abs(card["LPIPS"] - cpu["LPIPS"]) <= LPIPS_RTOL * abs(
+            cpu["LPIPS"]), res
+        report = self.results["train_cli"]["test_psnr"][CLI_ITERS]
+        gap = self.render_gap()
+        # The in-process render at the render CLI's capacity, as 8-bit PNG
+        # values, is what the metrics CLI scored.
+        assert abs(gap["default"]["png_psnr"] - card["PSNR"]) <= 0.01, (
+            gap, card)
+        emit("metrics", ok=True, model="train_cli", method=method,
+             views=len(res["cuda_views"]["PSNR"]), card=card, cpu=cpu,
+             per_view_psnr=res["cuda_views"]["PSNR"], seconds=seconds,
+             lpips_weights="random VGG16 (numpy seed 0)",
+             report_test_psnr=report, metrics_test_psnr=card["PSNR"],
+             report_minus_metrics_db=report - card["PSNR"], render_gap=gap)
+
+    def render_gap(self) -> dict:
+        """train_cli's snapshot rendered in-process as the render CLI
+        renders it (the loaded store's default pair capacity) and at the
+        run's pinned CLI_PAIRS: per held-out view its overflow and PSNR, on
+        the float image and on 8-bit values as the render CLI writes them
+        (truncated), and their means."""
+        t = self.torch
+        from priordepth_gaussiansplatting_torch.data.dataset import Scene
+        from priordepth_gaussiansplatting_torch.ops import losses
+        from priordepth_gaussiansplatting_torch.train import checkpoint
+        state = checkpoint.load_model_snapshot(self.cli_model, CLI_ITERS,
+                                               device=self.dev)
+        scene = Scene(self.cli_scene, eval_split=True, shuffle=False,
+                      device=self.dev)
+        bg = t.zeros(3, device=self.dev)
+
+        def png(img):
+            return (t.clamp(img, 0, 1) * 255).to(t.uint8).float() / 255
+
+        out = {"store_rows": state.capacity,
+               "default_pair_capacity":
+                   self.rasterize.default_pair_capacity(state.capacity),
+               "pinned_pair_capacity": CLI_PAIRS}
+        for label, cap in (("default", None), ("pinned", CLI_PAIRS)):
+            views = []
+            for cam in scene.test_cameras:
+                r = self.step.eval_image(cam, state, bg, backend="kernels",
+                                         pair_capacity=cap)
+                views.append(dict(
+                    overflow=int(r["overflow"]), psnr=float(r["psnr"]),
+                    png_psnr=float(losses.psnr(png(r["render"]),
+                                               png(cam.image)))))
+            out[label] = dict(views=views, **{
+                k: float(np.mean([v[k] for v in views]))
+                for k in ("psnr", "png_psnr")})
+        return out
+
     def kernels_line(self):
         res = self.results
         rows = []
@@ -2237,6 +2633,14 @@ class Smoke:
                 "library_ms": res["library_ms"][name],
             })
         print(json.dumps({"kernels": rows}), flush=True)
+
+
+def prune_on_cpu(ck: str, scene: str) -> dict:
+    """Phase thesis's prune loop on the CPU, in a process of its own (the
+    card's loops run meanwhile), leaving two cores to the parent."""
+    import torch
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    return Smoke().prune_run(ck, scene, torch.device("cpu"))
 
 
 def multi_rank(rank: int, world: int) -> dict:
@@ -2258,6 +2662,11 @@ def main(argv=None) -> int:
              "one per card, in an NCCL group, then the train CLI over N "
              "cards (needs N cards)")
     parser.add_argument(
+        "--phases", nargs="+", choices=CLI_PHASES,
+        help="run only phase device and these phases of the CLIs, in their "
+             "order (train_cli first: the others use its scene and model); "
+             "no kernels line")
+    parser.add_argument(
         "--turns", metavar="DIR",
         help="run only the turns phase: K7 and K1 in turns against those "
              "built from DIR's priordepth_gaussiansplatting_torch/csrc/")
@@ -2277,6 +2686,14 @@ def main(argv=None) -> int:
     if args.turns:
         smoke.phase_turns(args.turns)
         return finish(smoke.smi)
+    if args.phases:
+        with tempfile.TemporaryDirectory() as work:
+            smoke.work = work
+            smoke.phase_device(build_seconds, build_wall)
+            for name in CLI_PHASES:
+                if name == "train_cli" or name in args.phases:
+                    getattr(smoke, f"phase_{name}")()
+        return finish(smoke.smi)
     with tempfile.TemporaryDirectory() as work:
         smoke.work = work
         smoke.phase_device(build_seconds, build_wall)
@@ -2292,6 +2709,8 @@ def main(argv=None) -> int:
         smoke.phase_bench()
         smoke.phase_train_cli()
         smoke.phase_mesh_train()
+        smoke.phase_thesis()
+        smoke.phase_metrics()
     smoke.kernels_line()
     return finish(smoke.smi)
 
@@ -2335,6 +2754,26 @@ def main_multi(ranks: int, build_wall: float) -> int:
     return finish(smi)
 
 
+def multi_events(run: dict, ranks: int) -> list:
+    """The thesis events of a train CLI run over `ranks` ranks: each at its
+    iteration, the same active count on every rank (rank 0 prints the
+    counts it gathered), six rows injected, the prune's renders through
+    K1, K5a and K2 on rank 0."""
+    inj, prn = run["events"]
+    assert (inj["iteration"], prn["iteration"]) == (MULTI_INJECT,
+                                                    MULTI_PRUNE), run
+    for e in (inj, prn):
+        assert e["n_active_by_rank"] == [e["n_active"]] * ranks, e
+        assert f"active rows by rank: {e['n_active_by_rank']}" in run["out"]
+    assert inj["n_active"] == inj["n_active_before"] + 6, inj
+    assert prn["overflowed_views"] == 0 and prn["deleted"] >= 1, prn
+    assert prn["launches"] == dict.fromkeys(FORWARD,
+                                            len(prn["history"])), prn
+    return [{k: e.get(k) for k in ("event", "iteration", "n_active_before",
+                                   "n_active", "n_active_by_rank", "deleted",
+                                   "views", "seconds")} for e in (inj, prn)]
+
+
 def multi_cli(ranks: int) -> None:
     """Phase multi_cli of ``--ranks N``: the train CLI itself on N cards
     (it starts its N ranks) on train_cli's scene, for MULTI_CLI_ITERS
@@ -2346,14 +2785,18 @@ def multi_cli(ranks: int) -> None:
     iters, check = MULTI_CLI_ITERS, MULTI_CLI_ITERS // 2
     grids = [("1x%d_bands" % ranks, ["--n_gauss", str(ranks), "--tile_shard"],
               TILE_STEP)]
+    events = ["-d", "depths", "--noise_injection_iter", str(MULTI_INJECT),
+              "--floating_prune_iter", str(MULTI_PRUNE)]
     if ranks % 2 == 0 and ranks > 2:
         grids.append(("2x%d" % (ranks // 2),
-                      ["--n_data", "2", "--n_gauss", str(ranks // 2)], STEP))
+                      ["--n_data", "2", "--n_gauss", str(ranks // 2)]
+                      + events, STEP))
     out = {}
     with tempfile.TemporaryDirectory() as work:
         scene = os.path.join(work, "scene")
         smoke.run_cmd([sys.executable, "tools/make_synthetic_scene.py",
                        scene, str(size), str(views)], 600)
+        smoke.testing.write_depth_priors(scene, size, views, synthetic_tool())
         for label, flags, path in grids:
             model = os.path.join(work, label)
             run = smoke.train_cli(
@@ -2371,6 +2814,8 @@ def multi_cli(ranks: int) -> None:
                               train_psnr=train_psnr,
                               n_active=run["n_active"],
                               step_launches=run["step_launches"])
+            if "--floating_prune_iter" in flags:
+                out[label]["events"] = multi_events(run, ranks)
         single = os.path.join(work, "single")
         smoke.train_cli(["-s", scene, "-m", single, "--iterations",
                          str(check), "--test_iterations", str(check),

@@ -81,6 +81,15 @@ def _focal2fov(focal, pixels):
     return 2 * math.atan(pixels / (2 * focal))
 
 
+def store_point_ply_whole(path: str, xyz: np.ndarray, rgb: np.ndarray):
+    """Write a scene's initial point cloud through a temporary file renamed
+    into place: the ranks of a multi-rank run load a fresh scene at once,
+    and each must read a whole file, its own or another rank's."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    ply_io.store_point_ply(tmp, xyz, rgb)
+    os.replace(tmp, path)
+
+
 def read_colmap_scene(path: str, images_dir: str = "images",
                       depths_dir: str = "", eval_split: bool = False,
                       llffhold: int = 8) -> SceneInfo:
@@ -146,7 +155,7 @@ def read_colmap_scene(path: str, images_dir: str = "images",
     if not os.path.exists(ply_path):
         xyz = np.stack([p.xyz for p in points.values()]).astype(np.float32)
         rgb = np.stack([p.rgb for p in points.values()]).astype(np.uint8)
-        ply_io.store_point_ply(ply_path, xyz, rgb)
+        store_point_ply_whole(ply_path, xyz, rgb)
     pcd = ply_io.fetch_point_ply(ply_path)
 
     return SceneInfo(point_cloud=pcd, train_cameras=train, test_cameras=test,
@@ -199,7 +208,7 @@ def read_blender_scene(path: str, white_background: bool = False,
         num_pts = 100_000
         xyz = np.random.random((num_pts, 3)) * 2.6 - 1.3
         rgb = (np.random.random((num_pts, 3)) * 255).astype(np.uint8)
-        ply_io.store_point_ply(ply_path, xyz.astype(np.float32), rgb)
+        store_point_ply_whole(ply_path, xyz.astype(np.float32), rgb)
     pcd = ply_io.fetch_point_ply(ply_path)
     return SceneInfo(point_cloud=pcd, train_cameras=train, test_cameras=test,
                      nerf_normalization=get_nerfpp_norm(train),

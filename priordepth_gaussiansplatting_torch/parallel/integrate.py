@@ -12,6 +12,7 @@ shard.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..models import densify as densify_ops
 from ..models import gaussians as gm
@@ -118,6 +119,19 @@ def gather_sharded(state: GaussianState, opt_state: optim.AdamState,
         return all_gather_rows(x, mesh, GAUSS_AXIS)
     with torch.no_grad():
         return _map_rows(state, opt_state, gather)
+
+
+def broadcast_state(state: GaussianState, opt_state: optim.AdamState,
+                    src: int = 0):
+    """Rank `src`'s per-Gaussian rows and moments on every rank (a
+    collective over the whole world): after a host-side event on one
+    rank's gathered store, every rank holds the same store."""
+    def bcast(x, _):
+        y = (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
+        dist.broadcast(y, src=src)
+        return y.to(torch.bool) if x.dtype == torch.bool else y
+    with torch.no_grad():
+        return _map_rows(state, opt_state, bcast)
 
 
 def grow_sharded(state: GaussianState, opt_state: optim.AdamState,

@@ -142,6 +142,15 @@ class _AllGatherRows(torch.autograd.Function):
         return psum(grad, mesh, axis)[r * rows:(r + 1) * rows], None, None
 
 
+def gather_world(value: int, mesh: Mesh) -> list:
+    """`value` of every rank of the grid, in rank order (a collective over
+    the whole world)."""
+    x = torch.tensor([value], dtype=torch.int64, device=mesh.device)
+    parts = [torch.empty_like(x) for _ in range(mesh.n_data * mesh.n_gauss)]
+    dist.all_gather(parts, x)
+    return [int(p) for p in parts]
+
+
 def all_gather_rows(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """Differentiable all_gather of `x` along dim 0 over `axis`, in rank
     order."""

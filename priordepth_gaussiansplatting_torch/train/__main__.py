@@ -21,13 +21,14 @@ card over NCCL (gloo with ``--data_device cpu``). A world of another size,
 or more ranks than the machine has cards, is refused. Rank 0 alone writes
 the artifacts and prints.
 
-Not ported yet, so refused: runs that reach an enabled thesis event
-(ROADMAP queue 1: Prune; pass ``--noise_injection_iter 0
---floating_prune_iter 0``). The network viewer (ROADMAP queue 1: Viewer)
-is not ported: without ``--disable_viewer`` the CLI says so once and
-trains. The last line is the run's summary as JSON after ``Training
-complete: ``, with its skipped updates and the kernel launches of its
-steps (those of the evaluations left out), by kernel.
+The thesis events run at ``--noise_injection_iter`` (six floaters
+planted) and ``--floating_prune_iter`` (the depth-prior prune loop, which
+needs the priors of ``-d <depths>``), 0 turning either off, on one rank or
+on a grid. The network viewer (ROADMAP queue 1: Viewer) is not ported:
+without ``--disable_viewer`` the CLI says so once and trains. The last line
+is the run's summary as JSON after ``Training complete: ``, with its
+skipped updates, the kernel launches of its steps (those of the
+evaluations and the events left out), by kernel, and the events.
 """
 
 from __future__ import annotations

@@ -18,9 +18,14 @@ step reduces over the grid), so every rank makes the same collectives.
 Evaluation, snapshots and checkpoints gather the whole state on every
 rank; rank 0 alone writes files and prints progress.
 
-The PriorDepth thesis events (noise injection, the floating-object prune)
-are not ported yet (ROADMAP queue 1: Prune): a run whose iteration range
-reaches an enabled one raises before its first step.
+The PriorDepth thesis events (``train/prune.py``) run where the JAX
+trainer runs them, after the densify round and the opacity reset of their
+iteration: the noise injection at ``noise_injection_iter`` and the
+floating-object prune loop at ``floating_prune_iter``. On a mesh every rank
+gathers the store and takes the event's draws; rank 0 runs the event and
+broadcasts the store, every rank places its shard again, and the ranks'
+active counts must agree. The kernel launches of the events, like those of
+the evaluations, are left out of the steps' count.
 """
 
 from __future__ import annotations
@@ -37,14 +42,16 @@ from ..core.cameras import Camera
 from ..device import launch_counts, resolve_device
 from ..models import gaussians as gm
 from ..ops import rasterize as raster_ops
+from ..ops import render as render_ops
 from ..parallel import integrate as par
 from ..parallel import step as pstep
-from ..parallel.mesh import GAUSS_AXIS, all_gather_rows, psum
+from ..parallel.mesh import GAUSS_AXIS, all_gather_rows, gather_world, psum
 from ..utils.config import (ModelConfig, OptimizationConfig, PipelineConfig,
                             save_cfg_args)
 from ..utils.logging import MetricsLogger
 from . import checkpoint as ckpt
 from . import optim
+from . import prune as prune_lib
 from . import step as step_lib
 
 # The per-step metrics vector, in the JAX trainer's order.
@@ -58,8 +65,10 @@ class Trainer:
     ``tile_shard`` splitting the compositor's tiles into bands over the
     gauss ranks. ``noise_source``, when set, returns the (2, rows, 3) split
     draws of the next densify round (rows: the store's, or on a mesh this
-    rank's shard's) in place of the trainer's generator (the tests feed it
-    the JAX trainer's draws)."""
+    rank's shard's) in place of the trainer's generator, and
+    ``inject_source`` the draws of the noise injection
+    (``train/prune.py::noise_draws``'s dict); the tests feed both the JAX
+    trainer's draws."""
 
     def __init__(self, model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                  pipe_cfg: PipelineConfig, scene, seed: int = 0,
@@ -85,6 +94,7 @@ class Trainer:
         self.rng = random.Random(seed)
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.noise_source: Optional[Callable[[], torch.Tensor]] = None
+        self.inject_source: Optional[Callable[[], dict]] = None
 
         xyz, colors, _ = scene.point_cloud()
         capacity = init_capacity
@@ -137,6 +147,8 @@ class Trainer:
         self.total_skips = 0
         self.max_consecutive_skips = 25
         self.nonfinite_losses = 0
+        # One dict per thesis event run (see inject_noise).
+        self.events: List[dict] = []
 
     def _make_fns(self, pair_capacity: Optional[int] = None):
         if self.mesh is not None:
@@ -225,17 +237,6 @@ class Trainer:
                                           generator=self.generator,
                                           device=self.device))}
 
-    def _check_thesis_events(self, first: int, last: int) -> None:
-        opt = self.opt_cfg
-        for name, it in (("noise_injection_iter", opt.noise_injection_iter),
-                         ("floating_prune_iter", opt.floating_prune_iter)):
-            if it and first <= it <= last:
-                raise NotImplementedError(
-                    f"{name}={it} falls in this run (iterations {first}-"
-                    f"{last}), but the thesis events are not ported yet "
-                    "(ROADMAP queue 1: Prune); pass --noise_injection_iter "
-                    "0 --floating_prune_iter 0")
-
     def _metrics_vector(self, metrics: dict) -> torch.Tensor:
         zero = torch.zeros((), device=self.device)
         return torch.stack([metrics.get(k, zero).to(torch.float32)
@@ -247,13 +248,12 @@ class Trainer:
         opt = self.opt_cfg
         total = iterations if iterations is not None else opt.iterations
         first = self.iteration + 1
-        self._check_thesis_events(first, total)
         test_iterations = set(test_iterations)
         save_iterations = set(save_iterations)
         checkpoint_iterations = set(checkpoint_iterations)
         pending = []  # (iteration, (6,) metrics on the device)
         # The kernel launches of the steps: those of the whole run, less
-        # those of the reports.
+        # those of the reports and the events.
         base = launch_counts()
         t_start = time.time()
         for it in range(first, total + 1):
@@ -287,16 +287,19 @@ class Trainer:
                     self.state, self.opt_state = self.fns.reset_opacity(
                         self.state, self.opt_state)
 
+            # PriorDepth thesis events (train.py:193-291).
+            if opt.noise_injection_iter and it == opt.noise_injection_iter:
+                self._aside(base, self.inject_noise)
+            if opt.floating_prune_iter and it == opt.floating_prune_iter:
+                self._aside(base, self.run_floating_prune)
+
             pending.append((it, self._metrics_vector(metrics)))
             if (it % 50 == 0 or it >= total or it in test_iterations
                     or it in save_iterations or it in checkpoint_iterations):
                 self._drain(pending, total, t_start)
 
             if it in test_iterations:
-                before = launch_counts()
-                self.report(it)
-                for k, v in launch_counts().items():
-                    base[k] += v - before[k]
+                self._aside(base, self.report, it)
             if it in save_iterations and self.model_cfg.model_path:
                 self.save_snapshot(it)
             if it in checkpoint_iterations and self.model_cfg.model_path:
@@ -310,7 +313,18 @@ class Trainer:
                 "skipped": self.total_skips,
                 "step_launches": {k: v - base[k]
                                   for k, v in launch_counts().items()
-                                  if v != base[k]}}
+                                  if v != base[k]},
+                "events": [e for e in self.events
+                           if first <= e["iteration"] <= total]}
+
+    @staticmethod
+    def _aside(base: dict, fn, *args) -> None:
+        """``fn(*args)``, whose kernel launches are added to `base` so that
+        they stay out of the steps' count."""
+        before = launch_counts()
+        fn(*args)
+        for k, v in launch_counts().items():
+            base[k] += v - before[k]
 
     def _drain(self, pending: list, total: int, t_start: float) -> None:
         """Copy the queued metrics to the host in one transfer and act on
@@ -474,6 +488,111 @@ class Trainer:
         self.logger.scalar("total_points", float(active.sum()), it)
         self.history.append({"iteration": it, **out})
         return out
+
+    # ------------------------------------------------------------- thesis
+    def inject_noise(self) -> dict:
+        """The iteration-30000 robustness experiment: six floaters planted
+        in free slots (``train.py:193-221``;
+        ``train/prune.py::inject_noise_gaussians``). Its draws come from
+        ``inject_source`` or the trainer's generator."""
+        state, opt_state = self.gathered()
+        before, t0 = launch_counts(), time.perf_counter()
+        n_before = int(state.num_active)
+        draws = (self.inject_source() if self.inject_source is not None
+                 else prune_lib.noise_draws(
+                     state.capacity, self.scene.cameras_extent,
+                     generator=self.generator, device=self.device))
+        if self._runs_events():
+            state, opt_state, _ = prune_lib.inject_noise_gaussians(
+                state, opt_state, self.scene.cameras_extent, draws=draws)
+        event = self._settle(state, opt_state, {
+            "event": "inject", "iteration": self.iteration,
+            "n_active_before": n_before}, before, t0)
+        if not self.quiet:
+            print(f"[it {self.iteration}] injected noise gaussians "
+                  f"(n_active={event['n_active']}, "
+                  f"{event['n_active'] - n_before:+d}){self._ranks(event)}",
+                  flush=True)
+        return event
+
+    def run_floating_prune(self) -> dict:
+        """The iteration-40000 depth-prior floating-object prune loop
+        (``train.py:224-291``; ``train/prune.py::prune_loop``): each view
+        renders through ``ops/render.py::render`` at the store's default
+        pair capacity, as in the JAX trainer, and a view that overflows it
+        is reported. The loop's RandomState is seeded from the trainer's
+        camera generator."""
+        state, opt_state = self.gathered()
+        before, t0 = launch_counts(), time.perf_counter()
+        n_before = int(state.num_active)
+        rng = np.random.RandomState(self.rng.randint(0, 2 ** 31))
+        overflow = []
+
+        def rfn(cam, st):
+            out = render_ops.render(cam, st, self.bg,
+                                    antialiasing=self.pipe_cfg.antialiasing,
+                                    backend=self.pipe_cfg.backend)
+            if out["overflow"] is not None:
+                overflow.append(out["overflow"])
+            return out["invdepth"], out["radii"]
+
+        info = {"total_deleted": 0, "epochs": 0, "history": []}
+        if self._runs_events():
+            state, opt_state, info = prune_lib.prune_loop(
+                state, opt_state, self.scene.train_cameras, rfn,
+                self.scene.cameras_extent, rng=rng)
+        over = [int(v) for v in overflow if int(v) > 0]
+        event = self._settle(state, opt_state, {
+            "event": "prune", "iteration": self.iteration,
+            "n_active_before": n_before, "deleted": info["total_deleted"],
+            "views": info["epochs"], "history": info["history"],
+            "overflowed_views": len(over)}, before, t0)
+        if not self.quiet:
+            if over:
+                print(f"[it {self.iteration}] WARNING: {len(over)} prune "
+                      f"views overflowed the pair capacity (by up to "
+                      f"{max(over)}) — their inverse depth reads low",
+                      flush=True)
+            print(f"[it {self.iteration}] floating-object prune: deleted "
+                  f"{info['total_deleted']} over {info['epochs']} views "
+                  f"(n_active={event['n_active']}){self._ranks(event)}",
+                  flush=True)
+        return event
+
+    def _runs_events(self) -> bool:
+        """Whether this rank computes a thesis event (rank 0 of a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _settle(self, state, opt_state, event: dict, before: dict,
+                t0: float) -> dict:
+        """Take the event's store: on a mesh rank 0's, broadcast to every
+        rank and placed as shards again, after which every rank's active
+        count must be the same. Records the event with its kernel launches
+        and its seconds since `t0` (the count's read waits for the
+        device)."""
+        if self.mesh is not None:
+            state, opt_state = par.broadcast_state(state, opt_state, src=0)
+            state, opt_state = par.place_sharded(state, opt_state, self.mesh)
+        self.state, self.opt_state = state, opt_state
+        event["n_active"] = self.num_active()
+        if self.mesh is not None:
+            counts = gather_world(event["n_active"], self.mesh)
+            if len(set(counts)) != 1:
+                raise RuntimeError(
+                    f"[it {self.iteration}] the ranks disagree after the "
+                    f"{event['event']} event: active rows {counts}")
+            event["n_active_by_rank"] = counts
+        event["launches"] = {k: v - before[k]
+                             for k, v in launch_counts().items()
+                             if v != before[k]}
+        event["seconds"] = time.perf_counter() - t0
+        self.events.append(event)
+        return event
+
+    @staticmethod
+    def _ranks(event: dict) -> str:
+        counts = event.get("n_active_by_rank")
+        return "" if counts is None else f"; active rows by rank: {counts}"
 
     def save_snapshot(self, it: int) -> None:
         state, _ = self.gathered()

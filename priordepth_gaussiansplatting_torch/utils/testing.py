@@ -8,6 +8,7 @@ so a test can hand the very same values to the JAX package and the port.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 
@@ -164,3 +165,30 @@ def tile_window_cases(grid_y: int = 100) -> dict:
     cases["spill"] = (w, h, int((w * h).sum()) + 4096)
     return {name: _tile_inputs(rng, w, h, p_cap, (300, grid_y))
             for name, (w, h, p_cap) in cases.items()}
+
+
+def write_depth_priors(scene: str, size: int, n_views: int, tool) -> list:
+    """Inverse-depth priors for a scene of ``tools/make_synthetic_scene.py``
+    (`tool`, that module, loaded by path): each view's camera-space inverse
+    depth from the tool's own ``camera_pose`` and ``render_view`` (which
+    returns the distance along the unit ray: z = distance / |(x, y, 1)|),
+    written as 16-bit PNGs ``<scene>/depths/r_<i>.png`` (value x 65,536,
+    clipped; sky 0), which the loader reads with ``depths="depths"``.
+    Returns the inverse depths as f32 arrays."""
+    from PIL import Image  # noqa: PLC0415
+    focal = 0.82 * size
+    ys, xs = np.mgrid[0:size, 0:size].astype(np.float64)
+    ray = np.sqrt(((xs - size / 2.0) / focal) ** 2
+                  + ((ys - size / 2.0) / focal) ** 2 + 1.0)
+    os.makedirs(os.path.join(scene, "depths"), exist_ok=True)
+    out = []
+    for i in range(n_views):
+        R, t = tool.camera_pose(i, n_views)
+        _, dist, _ = tool.render_view(R, t, size, focal)
+        inv = np.where(np.isfinite(dist), ray / np.where(
+            np.isfinite(dist), dist, 1.0), 0.0)
+        png = np.clip(np.round(inv * 65536.0), 0, 65535).astype(np.uint16)
+        Image.fromarray(png).save(os.path.join(scene, "depths",
+                                               f"r_{i:03d}.png"))
+        out.append(inv.astype(np.float32))
+    return out

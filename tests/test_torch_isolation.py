@@ -127,6 +127,16 @@ def _load_checkpoint(tmp_path):
     checkpoint.load_checkpoint(str(tmp_path / "chkpnt1.pkl"))
 
 
+def _metrics_cli(tmp_path):
+    from priordepth_gaussiansplatting_torch import metrics
+    metrics.main(["-m", str(tmp_path)])
+
+
+def _feature_table():
+    from priordepth_gaussiansplatting_torch.train import prune
+    prune.FeatureTable.empty(8)
+
+
 @pytest.mark.parametrize("entry", ["resolve_device", "look_at_camera",
                                    "load_model_snapshot", "render_cli",
                                    "interop", "create_from_points",
@@ -134,7 +144,7 @@ def _load_checkpoint(tmp_path):
                                    "initialize_multihost", "train_cli",
                                    "perf_probe", "trainer",
                                    "load_checkpoint", "densify_probe",
-                                   "bench"])
+                                   "bench", "metrics_cli", "feature_table"])
 def test_entry_points_need_the_card_or_cpu(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -153,6 +163,8 @@ def test_entry_points_need_the_card_or_cpu(entry, tmp_path):
         "load_checkpoint": lambda: _load_checkpoint(tmp_path),
         "densify_probe": lambda: _densify_probe(tmp_path),
         "bench": _bench,
+        "metrics_cli": lambda: _metrics_cli(tmp_path),
+        "feature_table": _feature_table,
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

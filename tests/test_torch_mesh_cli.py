@@ -146,3 +146,35 @@ def test_train_cli_joins_the_environments_group(tmp_path):
     assert "Training complete" not in outs[1][0]
     assert os.path.exists(os.path.join(
         model, "point_cloud", "iteration_4", "point_cloud.ply"))
+
+
+def test_a_fresh_scenes_point_cloud_is_written_whole(tmp_path, monkeypatch):
+    """The ranks the CLI starts load a fresh scene at once, and each one
+    that finds no initial point cloud writes it: the file appears under
+    its name only whole (a temporary file renamed into place), so no rank
+    reads a part of another's write. COLMAP (points3D.bin converted) and
+    Blender (random points) scenes."""
+    from priordepth_gaussiansplatting_torch.data import dataset
+    from test_data import _make_blender_scene
+    from test_torch_trainer import make_scene as make_colmap_scene
+    colmap = make_colmap_scene(str(tmp_path / "colmap"))
+    blender = str(tmp_path / "blender")
+    _make_blender_scene(blender, n_frames=2, size=16)
+    store, writes = dataset.ply_io.store_point_ply, []
+
+    def watched(path, xyz, rgb):
+        final = path[:path.index(".ply") + 4]
+        assert not os.path.exists(final), final
+        writes.append((path, final))
+        store(path, xyz, rgb)
+    monkeypatch.setattr(dataset.ply_io, "store_point_ply", watched)
+    for root, name in ((colmap, "sparse/0/points3D.ply"),
+                       (blender, "points3d.ply")):
+        scene = dataset.Scene(root, device="cpu")
+        final = os.path.join(root, name)
+        assert writes[-1][1] == final and writes[-1][0] != final
+        assert os.path.exists(final)
+        assert not [f for f in os.listdir(os.path.dirname(final))
+                    if f.endswith(".tmp")]
+        assert scene.info.point_cloud[0].shape[0] > 0
+    assert len(writes) == 2

@@ -2,8 +2,8 @@
 train``) and its stage probe (``python -m priordepth_gaussiansplatting_
 torch.perf_probe``) on the CPU: a 20-iteration run through the tile
 pipeline's plain versions with its artifacts, a resume from its checkpoint,
-the refusal of what is not ported yet (the thesis events at their default
-iterations) and of multi-rank grids that cannot run."""
+a run through both thesis events, and the refusal of multi-rank grids that
+cannot run."""
 
 import dataclasses
 import json
@@ -21,6 +21,7 @@ from priordepth_gaussiansplatting_torch.data import dataset
 from priordepth_gaussiansplatting_torch.train import __main__ as train_cli
 from priordepth_gaussiansplatting_torch.train import trainer
 from priordepth_gaussiansplatting_torch.utils import config
+from priordepth_gaussiansplatting_torch.utils import testing as pt
 from test_torch_trainer import make_scene
 
 torch.set_num_threads(2)
@@ -131,14 +132,36 @@ def test_step_launches_leave_out_the_reports(scene_dir, monkeypatch):
     assert result["step_launches"] == {"expand_pairs": 6}, result
 
 
-def test_train_cli_refuses_the_default_thesis_events(scene_dir, tmp_path):
-    """30,000 iterations reach the noise injection at its default 30,000:
-    the run raises before its first step instead of skipping it."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Prune"):
-        train_cli.main(["-s", scene_dir, "-m", str(tmp_path / "m"),
-                        "--data_device", "cpu", "--disable_viewer",
-                        "--quiet"])
-    assert not os.path.exists(tmp_path / "m" / "chkpnt30000.pkl")
+def test_train_cli_runs_the_thesis_events(tmp_path, capsys):
+    """Both thesis events from the CLI's flags, with the priors of ``-d
+    depths``: six floaters planted at 4, the prune loop at 8, training
+    going on after them; their launches stay out of the steps' count."""
+    from test_torch_trainer_events import synthetic_tool
+    scene = make_scene(str(tmp_path / "scene"), views=4)
+    pt.write_depth_priors(scene, 64, 4, synthetic_tool())
+    model = str(tmp_path / "m")
+    result = train_cli.main(
+        ["-s", scene, "-m", model, "-d", "depths", "--data_device", "cpu",
+         "--eval", "--backend", "kernels", "--disable_viewer",
+         "--iterations", "10", "--noise_injection_iter", "4",
+         "--floating_prune_iter", "8", "--test_iterations", "10",
+         "--save_iterations", "10"])
+    out = capsys.readouterr().out
+    inj, prn = result["events"]
+    assert (inj["event"], inj["iteration"]) == ("inject", 4)
+    assert inj["n_active"] == inj["n_active_before"] + 6
+    assert f"[it 4] injected noise gaussians (n_active={inj['n_active']}, " \
+           "+6)" in out
+    assert (prn["event"], prn["iteration"]) == ("prune", 8)
+    assert prn["deleted"] >= 1 and prn["views"] >= 3
+    assert prn["n_active"] == prn["n_active_before"] - prn["deleted"]
+    assert (f"[it 8] floating-object prune: deleted {prn['deleted']} over "
+            f"{prn['views']} views") in out
+    assert prn["overflowed_views"] == 0 and "WARNING" not in out
+    assert result["iterations_run"] == 10 and result["skipped"] == 0
+    assert result["step_launches"] == {} and prn["launches"] == {}
+    assert os.path.exists(os.path.join(
+        model, "point_cloud/iteration_10/point_cloud.ply"))
 
 
 # Multi-rank runs the CLI refuses: a process group of another size than
