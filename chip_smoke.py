@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # one card, every phase below
     python3 chip_smoke.py --ranks 4  # only the multi-rank phases, 4 cards
     python3 chip_smoke.py --turns DIR  # only K7 and K1 against DIR's
-    python3 chip_smoke.py --phases thesis metrics  # device, train_cli, these
+    python3 chip_smoke.py --phases depth viewer  # device, train_cli, these
 
 Builds the port's CUDA kernels from ``priordepth_gaussiansplatting_torch/
 csrc/`` (one nvcc per source, in parallel), then runs, printing one JSON
@@ -107,7 +107,29 @@ line per phase:
      random VGG16 LPIPS weights written from a numpy seed, on the card
      against ``--device cpu`` (PSNR and SSIM within 1e-4, LPIPS rtol 1e-3),
      and its PSNR beside the trainer's report for the same views;
- 16. kernels: one object per kernel (the line before the card's line).
+ 16. depth: the depth-prior inference path (``depth/``, no kernel of the
+     table) with the repo's configuration (embed 384, 6 blocks, 6 heads,
+     patch 16, 16 bins) and weights drawn from a seed: the TTA priors of
+     train_cli's 32 images (1,024² inputs, 4,096 patches, the positional
+     table's limit), ms an image with and without the flip, peak memory;
+     one image's depth on the card against the CPU's, the fused attention
+     against the plain form, DepthModelNK once (soft and hard, against the
+     CPU), and a ViT-L encoder (DepthAnythingV2-L's DINOv2 layout) imported
+     from a random state dict written with torch.save, at 518² against the
+     CPU, its ms and peak memory;
+ 17. depth_chain: train_cli's scene with 2D observations of its sparse
+     points, priors by that model on the card, ``make_depth_scale`` (a
+     non-empty ``depth_params.json``), then the train CLI with ``-d
+     depths`` for 300 iterations (finite losses, no skipped update);
+ 18. viewer: the network viewer in-process over loopback, a client asking
+     for a held-out view of train_cli's checkpoint at 512² and view 0 of
+     the full scene at 1600x1066 (every image equal to a direct render
+     through K1, K5a and K2, within one level of the plain versions',
+     launched once each per request, none overflowing; ms a request), then
+     the train CLI with the viewer on and a client that holds training for
+     three requests and lets it go on (equal images while held, a later
+     one after; the renders' launches apart from the steps');
+ 19. kernels: one object per kernel (the line before the card's line).
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -127,13 +149,15 @@ beside the single-rank step's on the same card. Then phase multi_cli: the
 train CLI itself, starting its N ranks, on train_cli's scene for 500
 iterations over (1, N) with tile bands and, for N = 4, (2, 2) with the
 depth priors and both thesis events (at 300 and 400; every rank's active
-count the same after each), it/s and held-out PSNR, and a single-rank
-checkpoint restored over (1, N), whose shards' active rows differ by at
-most one.
+count the same after each), the same (2, 2) run with the network viewer on
+(rank 0 binds it) and a client that holds training for three requests,
+its it/s beside the run without the viewer, it/s and held-out PSNR, and a
+single-rank checkpoint restored over (1, N), whose shards' active rows
+differ by at most one.
 
 With ``--phases NAME ...`` it builds the kernels and runs phase device,
-train_cli and the named ones of mesh_train, thesis and metrics, without
-the kernels line.
+train_cli and the named ones of mesh_train, thesis, metrics, depth,
+depth_chain and viewer, without the kernels line.
 
 Any failure raises: the script exits non-zero, and it does so before
 printing a result when there is no CUDA card or when the port is not
@@ -161,7 +185,11 @@ single-rank step: atol 3e-4 max|g|, rtol 2e-3. A densify round on the
 card against the same round on the CPU (same split draws): equal counts
 and active rows, parameters and moments within 1e-5. K7 (the tile-only
 pair expansion) and bin_gaussians: bit for bit against the plain versions
-and the direct enumeration.
+and the direct enumeration. Depth (the depth model, DepthModelNK, the ViT-L
+encoder) on the card against the CPU, and the fused attention against the
+plain form: max|difference| within 1e-3 x max|depth| (or |feature|).
+Viewer images: equal to a direct render through the kernels, within one
+level of 255 of the plain versions'.
 """
 
 from __future__ import annotations
@@ -175,6 +203,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -248,8 +277,28 @@ INVDEPTH_TOL, EDGE_TOL_PX = 2e-5, 1e-4
 FULL_PRIOR, FULL_EXTENT = (0.0, 2.0), 0.5
 # metrics: the card's results against the CPU's.
 METRICS_ATOL, LPIPS_RTOL = 1e-4, 1e-3
+# depth: the repo's depth configuration (depth/config.py: embed 384, 6
+# blocks, 6 heads, patch 16, 16 bins) with weights drawn from DEPTH_SEED,
+# on train_cli's 512² images (TTA pads them to 1,024²: 4,096 patches, the
+# positional table's rows); its depths on the card against the CPU's and
+# its fused attention against the plain form, within DEPTH_RTOL x
+# max|depth|; a ViT-L-geometry encoder (DepthAnythingV2-L's DINOv2 layout:
+# embed 1024, 24 blocks, 16 heads, patch 14, class token, LayerScale,
+# final norm; taps after blocks 4, 11, 17 and 23) imported from a random
+# state dict, at 518² (37² patches).
+DEPTH_SEED, DEPTH_RTOL = 0, 1e-3
+VITL = dict(embed_dim=1024, depth=24, num_heads=16, patch_size=14,
+            taps=(4, 11, 17), exact_gelu=True, use_cls_token=True,
+            layerscale=True, final_norm=True)
+VITL_SIDE = 518
+# depth_chain: the train CLI's iterations on the chain's own priors.
+CHAIN_ITERS = 300
+# viewer: requests per camera in-process, the train CLI run's iterations
+# with a client that holds training for VIEWER_HELD requests.
+VIEWER_REQUESTS, VIEWER_CLI_ITERS, VIEWER_HELD = 10, 100, 3
 # The phases that --phases may select, in their order.
-CLI_PHASES = ("train_cli", "mesh_train", "thesis", "metrics")
+CLI_PHASES = ("train_cli", "mesh_train", "thesis", "metrics", "depth",
+              "depth_chain", "viewer")
 GRAD_ATOL, GRAD_RTOL = 3e-4, 2e-3
 
 
@@ -354,6 +403,55 @@ def random_vgg16_npz(path: str, seed: int = 0) -> None:
 def read_events(model: str) -> list:
     with open(os.path.join(model, "events.jsonl")) as f:
         return [json.loads(line) for line in f]
+
+
+def viewer_session(port: int, message: dict, held: int = VIEWER_HELD,
+                   deadline: float = 600.0) -> dict:
+    """A SIBR-like client of a train CLI's viewer on `port`: `held`
+    requests with ``train: false`` (training held: one iteration, equal
+    images), one that resumes training, one from a later iteration; each
+    must bring back an image. Raises if the viewer cannot be reached
+    within `deadline` s or drops a request. Pick `port` with
+    ``free_port_below_ephemeral``: the client dials it before the CLI
+    binds it, while NCCL's and gloo's listeners take ephemeral ports."""
+    from priordepth_gaussiansplatting_torch.utils import testing
+    client = testing.connect_viewer(port, deadline)
+    try:
+        images = [client.request(dict(message, train=False))[0]
+                  for _ in range(held)]
+        images.append(client.request(message)[0])
+        images.append(client.request(message)[0])
+    finally:
+        client.close()
+    assert all(im is not None and im.std() > 0 for im in images)
+    assert all(np.array_equal(im, images[0]) for im in images[1:-1]), (
+        "the held requests' images differ: training went on")
+    assert not np.array_equal(images[-1], images[0]), (
+        "the request after resuming shows the held state")
+    return {"requests": len(images), "held": held,
+            "shape": list(images[0].shape)}
+
+
+class Client(threading.Thread):
+    """`viewer_session` in a thread; ``result()`` re-raises its error."""
+
+    def __init__(self, *args):
+        super().__init__(daemon=True)
+        self.args, self.out, self.err = args, None, None
+
+    def run(self):
+        try:
+            self.out = viewer_session(*self.args)
+        except Exception as e:  # re-raised by result()
+            self.err = e
+
+    def result(self, timeout: float = 120.0) -> dict:
+        self.join(timeout)
+        if self.is_alive():
+            raise RuntimeError("the viewer client did not finish")
+        if self.err is not None:
+            raise RuntimeError(f"the viewer client failed: {self.err!r}")
+        return self.out
 
 
 class Smoke:
@@ -2090,12 +2188,15 @@ class Smoke:
              rays_per_s_fwd=res["rays_per_s_fwd"],
              rays_per_s_fwd_bwd=res["rays_per_s_fwd_bwd"])
 
-    def train_cli(self, args, timeout: int = 900, path=STEP) -> dict:
-        """One run of the train CLI: its summary line, as JSON, and its
-        output. Its steps must launch each kernel of `path` once."""
+    def train_cli(self, args, timeout: int = 900, path=STEP,
+                  viewer: bool = False) -> dict:
+        """One run of the train CLI (with `viewer` its network viewer on):
+        its summary line, as JSON, and its output. Its steps must launch
+        each kernel of `path` once."""
         out = self.run_cmd([sys.executable, "-m",
                             "priordepth_gaussiansplatting_torch.train",
-                            "--eval", "--disable_viewer",
+                            "--eval"] + ([] if viewer else
+                                         ["--disable_viewer"]) + [
                             "--noise_injection_iter", "0",
                             "--floating_prune_iter", "0",
                             "--init_capacity", str(CLI_CAPACITY),
@@ -2618,6 +2719,411 @@ class Smoke:
                 for k in ("psnr", "png_psnr")})
         return out
 
+    # --- depth-prior inference and the network viewer -----------------------
+
+    def depth_model(self):
+        """(config, the repo's depth model with weights from DEPTH_SEED on
+        the card), made once."""
+        if getattr(self, "_depth", None) is None:
+            from priordepth_gaussiansplatting_torch.depth import config
+            cfg = config.get_config("depth", "infer", "nyu")
+            self._depth = (cfg, config.build_model(
+                cfg, generator=self.torch.Generator().manual_seed(DEPTH_SEED),
+                device=self.dev).eval())
+        return self._depth
+
+    def phase_depth(self):
+        """The depth-prior inference path on the card: TTA priors of
+        train_cli's images, the card against the CPU, fused attention
+        against the plain form, DepthModelNK once, and a ViT-L encoder
+        imported from a DINOv2-layout state dict."""
+        t, t_phase = self.torch, time.perf_counter()
+        from PIL import Image
+        from priordepth_gaussiansplatting_torch.depth import (config, infer,
+                                                              layers)
+        cfg, model = self.depth_model()
+        images = os.path.join(self.cli_scene, "images")
+        names = sorted(os.listdir(images))
+        out_dir = os.path.join(self.work, "depth_priors")
+        infer.generate_depth_priors(model, images, out_dir, device=self.dev)
+        t.cuda.synchronize()
+        t.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        written = infer.generate_depth_priors(model, images, out_dir,
+                                              device=self.dev)
+        t.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        peak = t.cuda.max_memory_allocated() / 2 ** 30
+        assert len(written) == len(names), (written, names)
+        levels = []
+        for path in written:
+            png = np.asarray(Image.open(path))
+            assert png.dtype == np.uint16 and png.shape == CLI_SCENE[:1] * 2
+            levels.append(int(png.max()) - int(png.min()))
+        assert min(levels) > 0, levels
+        with Image.open(os.path.join(images, names[0])) as im:
+            arr = np.asarray(im.convert("RGB"), np.float32) / 255.0
+            x = t.from_numpy(arr)[None].to(self.dev)
+            d_card = infer.infer_pil(model, im, device=self.dev)
+            cpu_model = config.build_model(
+                cfg, generator=t.Generator().manual_seed(DEPTH_SEED),
+                device="cpu").eval()
+            t0 = time.perf_counter()
+            d_cpu = infer.infer_pil(cpu_model, im, device="cpu")
+            cpu_s = time.perf_counter() - t0
+        del cpu_model
+        card_vs_cpu = float(np.abs(d_card - d_cpu).max()
+                            / np.abs(d_cpu).max())
+        assert np.isfinite(d_card).all() and card_vs_cpu <= DEPTH_RTOL, (
+            card_vs_cpu)
+        # The CPU's prior PNG of that image, as generate_depth_priors
+        # writes it, against the card's batch job's.
+        cpu_png = os.path.join(self.work, "depth_prior_cpu.png")
+        infer.save_invdepth_png(cpu_png, d_cpu)
+        png_levels = int(np.abs(
+            np.asarray(Image.open(cpu_png), np.int64)
+            - np.asarray(Image.open(written[0]), np.int64)).max())
+        assert png_levels <= 1, png_levels
+        ms = {"tta_flip": cuda_ms(t, lambda: infer.infer_with_tta(model, x),
+                                  reps=5),
+              "tta_no_flip": cuda_ms(t, lambda: infer.infer_with_tta(
+                  model, x, with_flip=False), reps=5)}
+        # The TTA's input size: the fused attention against the plain form.
+        side = 2 * CLI_SCENE[0]
+        xin = t.rand((1, 3, side, side), generator=t.Generator(
+            self.dev).manual_seed(1), device=self.dev)
+        with t.inference_mode():
+            fused = model(xin)["metric_depth"]
+            ms["forward_fused"] = cuda_ms(t, lambda: model(xin), reps=5)
+            layers.use_fused_attention(model, False)
+            plain = model(xin)["metric_depth"]
+            ms["forward_plain_attention"] = cuda_ms(t, lambda: model(xin),
+                                                    reps=5)
+            layers.use_fused_attention(model, True)
+        fused_vs_plain = float((fused - plain).abs().max()
+                               / plain.abs().max())
+        assert fused_vs_plain <= DEPTH_RTOL, fused_vs_plain
+        nk = self.depth_nk_once(x)
+        vitl = self.vitl_once()
+        emit("depth", ok=True, config={k: cfg[k] for k in (
+                 "embed_dim", "encoder_depth", "n_bins", "min_depth",
+                 "max_depth", "bin_centers_type")},
+             weights=f"random, torch.Generator seed {DEPTH_SEED}",
+             images=len(written), image_size=list(arr.shape[:2]),
+             tta_input=[side, side], patches=(side // 16) ** 2,
+             batch_s=batch_s, ms_per_image_batch=1e3 * batch_s / len(written),
+             ms=ms, peak_mem_gib=peak, prior_levels_min=min(levels),
+             card_vs_cpu_rel=card_vs_cpu, card_vs_cpu_png_levels=png_levels,
+             cpu_tta_s=cpu_s, fused_vs_plain_attention_rel=fused_vs_plain,
+             nk=nk, vitl=vitl, seconds=time.perf_counter() - t_phase,
+             nvidia_smi=self.smi)
+
+    def depth_nk_once(self, x) -> dict:
+        """DepthModelNK (config depth_nk, dataset mix) on one 512² image,
+        soft and hard route, against the same model on the CPU."""
+        t = self.torch
+        from priordepth_gaussiansplatting_torch.depth import config
+        cfg = config.get_config("depth_nk", "infer", "mix")
+        out, models = {}, {}
+        xin = x.permute(0, 3, 1, 2).contiguous()
+        for label, device in (("card", self.dev), ("cpu", t.device("cpu"))):
+            nk = models[label] = config.build_model(
+                cfg, generator=t.Generator().manual_seed(DEPTH_SEED),
+                device=device).eval()
+            with t.inference_mode():
+                out[label] = [nk(xin.to(device), hard_route=h)
+                              for h in (False, True)]
+        soft, hard = out["card"]
+        assert soft["metric_depth"].shape == (1,) + tuple(x.shape[1:3])
+        assert bool(t.isfinite(soft["metric_depth"]).all())
+        assert bool(t.isfinite(hard["metric_depth"]).all())
+        errs = [float((a["metric_depth"].cpu() - b["metric_depth"]).abs()
+                      .max() / b["metric_depth"].abs().max())
+                for a, b in zip(out["card"], out["cpu"])]
+        assert max(errs) <= DEPTH_RTOL, errs
+        with t.inference_mode():
+            ms = cuda_ms(t, lambda: models["card"](xin), reps=5)
+        return dict(card_vs_cpu_rel={"soft": errs[0], "hard": errs[1]},
+                    domain_logits=soft["domain_logits"].cpu().tolist()[0],
+                    input=list(xin.shape[2:]), forward_ms=ms)
+
+    def vitl_once(self) -> dict:
+        """A random DINOv2-layout ViT-L state dict, written with torch.save,
+        loaded and converted by ``depth/import_torch.py``, run at 518² on
+        the card against the CPU."""
+        t = self.torch
+        from priordepth_gaussiansplatting_torch.depth import (import_torch,
+                                                              model)
+        g = t.Generator().manual_seed(DEPTH_SEED)
+        e, n, p = VITL["embed_dim"], VITL["depth"], VITL["patch_size"]
+        grid = VITL_SIDE // p
+
+        def rnd(*shape, scale=0.02, base=0.0):
+            return base + scale * t.randn(shape, generator=g)
+        sd = {"patch_embed.proj.weight": rnd(e, 3, p, p),
+              "patch_embed.proj.bias": rnd(e),
+              "cls_token": rnd(1, 1, e), "mask_token": rnd(1, e),
+              "pos_embed": rnd(1, 1 + grid * grid, e),
+              "norm.weight": rnd(e, base=1.0), "norm.bias": rnd(e)}
+        for i in range(n):
+            b = f"blocks.{i}."
+            sd.update({b + "norm1.weight": rnd(e, base=1.0),
+                       b + "norm1.bias": rnd(e),
+                       b + "attn.qkv.weight": rnd(3 * e, e),
+                       b + "attn.qkv.bias": rnd(3 * e),
+                       b + "attn.proj.weight": rnd(e, e),
+                       b + "attn.proj.bias": rnd(e),
+                       b + "ls1.gamma": rnd(e, scale=0.01, base=0.1),
+                       b + "norm2.weight": rnd(e, base=1.0),
+                       b + "norm2.bias": rnd(e),
+                       b + "mlp.fc1.weight": rnd(4 * e, e),
+                       b + "mlp.fc1.bias": rnd(4 * e),
+                       b + "mlp.fc2.weight": rnd(e, 4 * e),
+                       b + "mlp.fc2.bias": rnd(e),
+                       b + "ls2.gamma": rnd(e, scale=0.01, base=0.1)})
+        path = os.path.join(self.work, "vitl_dinov2_random.pth")
+        t.save({"model": {"pretrained." + k: v for k, v in sd.items()}},
+               path)
+        del sd
+        t0 = time.perf_counter()
+        enc_sd, geo = import_torch.convert_vit_state_dict(
+            import_torch.load_state_dict(path), target_grid=(grid, grid))
+        import_s = time.perf_counter() - t0
+        os.remove(path)
+        want = dict(embed_dim=e, depth=n, num_heads=VITL["num_heads"],
+                    patch_size=p,
+                    use_cls_token=True, num_register_tokens=0,
+                    layerscale=True, final_norm=True)
+        assert all(geo[k] == v for k, v in want.items()), geo
+        with t.device("meta"):
+            enc = model.ViTEncoder(**VITL)
+        enc.load_state_dict(enc_sd, assign=True)
+        enc.eval()
+        del enc_sd
+        x = t.rand((1, 3, VITL_SIDE, VITL_SIDE),
+                   generator=t.Generator().manual_seed(2))
+        t0 = time.perf_counter()
+        with t.inference_mode():
+            want_feats = enc(x)
+        cpu_s = time.perf_counter() - t0
+        enc = enc.to(self.dev)
+        xc = x.to(self.dev)
+        t.cuda.synchronize()
+        t.cuda.reset_peak_memory_stats()
+        with t.inference_mode():
+            feats = enc(xc)
+            ms = cuda_ms(t, lambda: enc(xc), reps=5)
+        peak = t.cuda.max_memory_allocated() / 2 ** 30
+        assert len(feats) == len(VITL["taps"]) + 1
+        errs = [float((f.cpu() - w).abs().max() / w.abs().max())
+                for f, w in zip(feats, want_feats)]
+        assert all(bool(t.isfinite(f).all()) for f in feats)
+        assert max(errs) <= DEPTH_RTOL, errs
+        params = sum(v.numel() for v in enc.parameters())
+        del enc
+        return dict(geometry=geo, params=params, side=VITL_SIDE,
+                    tokens=1 + grid * grid, ms=ms, peak_mem_gib=peak,
+                    card_vs_cpu_rel=errs, cpu_s=cpu_s, import_s=import_s)
+
+    def observe_points(self, scene: str) -> list:
+        """Give the scene's ``images.bin`` 2D observations: each sparse point
+        projected into every view whose image it falls in, in front of the
+        camera (occlusion not tested, as the e2e test's scene)."""
+        from priordepth_gaussiansplatting_torch.data import colmap as cm
+        sparse = os.path.join(scene, "sparse", "0")
+        cameras, images, points = cm.read_model(sparse)
+        ids = np.array(sorted(points))
+        xyz = np.stack([points[i].xyz for i in ids])
+        counts, out = [], {}
+        for key, im in images.items():
+            cam = cameras[im.camera_id]
+            fx, fy, cx, cy = cam.params[:4]
+            pc = xyz @ cm.qvec2rotmat(im.qvec).T + im.tvec
+            front = pc[:, 2] > 1e-6
+            z = np.where(front, pc[:, 2], 1.0)
+            uv = np.stack([fx * pc[:, 0] / z + cx, fy * pc[:, 1] / z + cy], 1)
+            keep = (front & (uv[:, 0] >= 0) & (uv[:, 0] < cam.width)
+                    & (uv[:, 1] >= 0) & (uv[:, 1] < cam.height))
+            out[key] = cm.ColmapImage(im.id, im.qvec, im.tvec, im.camera_id,
+                                      im.name, uv[keep],
+                                      ids[keep].astype(np.int64))
+            counts.append(int(keep.sum()))
+        cm.write_images_binary(out, os.path.join(sparse, "images.bin"))
+        return counts
+
+    def phase_depth_chain(self):
+        """The thesis's prior chain on train_cli's scene: 2D observations
+        for the sparse points, TTA priors by the depth model on the card,
+        ``make_depth_scale``, then the train CLI with ``-d depths``."""
+        import shutil
+        from priordepth_gaussiansplatting_torch.data import depth_scale
+        from priordepth_gaussiansplatting_torch.depth import infer
+        t_phase = time.perf_counter()
+        scene = os.path.join(self.work, "chain_scene")
+        shutil.copytree(self.cli_scene, scene,
+                        ignore=shutil.ignore_patterns("depths"))
+        observed = self.observe_points(scene)
+        assert min(observed) > 10, observed
+        _, model = self.depth_model()
+        t0 = time.perf_counter()
+        written = infer.generate_depth_priors(
+            model, os.path.join(scene, "images"),
+            os.path.join(scene, "depths"), device=self.dev)
+        priors_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params = depth_scale.make_depth_scale(scene,
+                                              os.path.join(scene, "depths"))
+        scale_s = time.perf_counter() - t0
+        with open(os.path.join(scene, "sparse", "0",
+                               "depth_params.json")) as f:
+            on_disk = json.load(f)
+        assert on_disk and on_disk == params, "empty depth_params.json"
+        assert len(params) == len(written) == CLI_SCENE[1], len(params)
+        fitted = [p for p in params.values() if p["scale"] != 0]
+        assert fitted and all(np.isfinite([p["scale"], p["offset"]]).all()
+                              for p in params.values()), params
+        with tempfile.TemporaryDirectory() as tmp:
+            model_dir = os.path.join(tmp, "model")
+            run = self.train_cli(
+                ["-s", scene, "-m", model_dir, "-d", "depths",
+                 "--iterations", str(CHAIN_ITERS), "--test_iterations",
+                 str(CHAIN_ITERS), "--save_iterations", str(CHAIN_ITERS)])
+            ev = read_events(model_dir)
+        losses = [e["value"] for e in ev
+                  if e.get("tag") == "train_loss_patches/total_loss"]
+        psnr = {e["step"]: e["value"] for e in ev
+                if e.get("tag") == "test/loss_viewpoint - psnr"}
+        assert run["iterations_run"] == CHAIN_ITERS and run["skipped"] == 0
+        assert losses and np.isfinite(losses).all(), losses
+        assert np.isfinite(run["final_loss"]), run
+        scales = sorted(p["scale"] for p in fitted)
+        emit("depth_chain", ok=True, views=len(written),
+             observations_per_view=[min(observed), max(observed)],
+             priors_s=priors_s, depth_scale_s=scale_s, fitted=len(fitted),
+             scale_median=scales[len(scales) // 2],
+             iterations=CHAIN_ITERS, wall_s=run["wall_s"],
+             final_loss=run["final_loss"], test_psnr=psnr,
+             step_launches=run["step_launches"], skipped=run["skipped"],
+             seconds=time.perf_counter() - t_phase)
+
+    def drive_viewer(self, gui, state, bg, message, n: int):
+        """`n` requests of one camera from a client thread, served by one
+        poll (``keep_alive`` on all but the last): the images and each
+        request's round trip in ms, as the client sees it."""
+        replies, times = [], []
+        # Connected before the poll, which accepts without waiting.
+        c = self.testing.ViewerClient("127.0.0.1", gui.port)
+
+        def client():
+            try:
+                for i in range(n):
+                    t0 = time.perf_counter()
+                    img, verify = c.request(dict(message,
+                                                 keep_alive=i < n - 1))
+                    times.append(1e3 * (time.perf_counter() - t0))
+                    replies.append(img)
+            finally:
+                c.close()
+        th = threading.Thread(target=client, daemon=True)
+        th.start()
+        gui.poll(state, bg, source_path=self.cli_scene)
+        th.join(120)
+        assert not th.is_alive() and len(replies) == n, (
+            f"{len(replies)} of {n} viewer images came back")
+        gui.poll(state, bg)  # the closed connection is dropped
+        return replies, times
+
+    def phase_viewer(self):
+        """The network viewer on the card: a client over loopback asks for
+        a held-out view of train_cli's checkpoint at 512² and for view 0 of
+        the full scene at 1600x1066; every image equals a direct render
+        through the kernels and lies within one level of the plain
+        versions'. Then the train CLI with the viewer on, held by a client
+        for VIEWER_HELD requests."""
+        t, k, T = self.torch, self.kernels, self.testing
+        t_phase = time.perf_counter()
+        from priordepth_gaussiansplatting_torch.data.dataset import Scene
+        from priordepth_gaussiansplatting_torch.train import checkpoint
+        from priordepth_gaussiansplatting_torch.viewer import network_gui as ng
+        state, _, _ = checkpoint.load_checkpoint(
+            os.path.join(self.cli_model, f"chkpnt{CLI_CHECK}.pkl"),
+            device=self.dev)
+        scene = Scene(self.cli_scene, eval_split=True, shuffle=False,
+                      device=self.dev)
+        full = self.state(T.random_gaussians(0, FULL_N, extent=1.0,
+                                             scale_range=(0.001, 0.004)))
+        wide = T.look_at_camera(FULL_EYES[0], width=FULL_W, height=FULL_H,
+                                device=self.dev)
+        bg = t.zeros(3, device=self.dev)
+
+        def image(out):
+            return (t.clamp(out["render"], 0, 1) * 255).to(t.uint8).permute(
+                1, 2, 0).cpu().numpy()
+
+        gui = ng.NetworkGUI("127.0.0.1", 0, device=self.dev)
+        views = {}
+        try:
+            for label, st, cam in (
+                    ("cli_512", state, scene.test_cameras[0]),
+                    ("full_1600x1066", full, wide)):
+                msg = T.camera_message(cam)
+                t.cuda.synchronize()
+                # The viewer's path: every count at 0 just before, read
+                # just after.
+                k.reset_launch_counts()
+                replies, times = self.drive_viewer(gui, st, bg, msg,
+                                                   VIEWER_REQUESTS)
+                launches = k.launch_counts()
+                assert launches == {n: (VIEWER_REQUESTS if n in FORWARD
+                                        else 0) for n in launches}, launches
+                direct = self.render.render(cam, st, bg)
+                want = image(direct)
+                with self.plain_kernels():
+                    plain = image(self.render.render(cam, st, bg))
+                assert all(np.array_equal(r, want) for r in replies), label
+                plain_diff = int(np.abs(want.astype(int)
+                                        - plain.astype(int)).max())
+                assert plain_diff <= 1, (label, plain_diff)
+                assert want.std() > 0
+                views[label] = dict(
+                    width=cam.width, height=cam.height, rows=st.capacity,
+                    requests=VIEWER_REQUESTS,
+                    ms_per_request=float(np.mean(times[1:])),
+                    ms_first=times[0],
+                    render_ms=cuda_ms(t, lambda: self.render.render(
+                        cam, st, bg), reps=10),
+                    overflow=int(direct["overflow"]),
+                    pair_capacity=self.rasterize.default_pair_capacity(
+                        st.capacity),
+                    plain_max_level_diff=plain_diff,
+                    launches={n: launches[n] for n in FORWARD})
+        finally:
+            gui.close()
+        stats = gui.stats
+        assert stats["errors"] == 0 and stats["renders"] == len(views) * (
+            VIEWER_REQUESTS), stats
+        assert stats["overflowed_views"] == 0, stats
+        del full
+        cli = self.viewer_cli(scene.test_cameras[0])
+        emit("viewer", ok=True, views=views, stats=stats, cli=cli,
+             seconds=time.perf_counter() - t_phase, nvidia_smi=self.smi)
+
+    def viewer_cli(self, cam) -> dict:
+        """The train CLI on train_cli's scene with the viewer on a free
+        port and a client that holds training, then lets it go on."""
+        T = self.testing
+        port = T.free_port_below_ephemeral()
+        client = Client(port, T.camera_message(cam))
+        client.start()
+        with tempfile.TemporaryDirectory() as tmp:
+            run = self.train_cli(
+                ["-s", self.cli_scene, "-m", os.path.join(tmp, "model"),
+                 "--iterations", str(VIEWER_CLI_ITERS), "--test_iterations",
+                 str(VIEWER_CLI_ITERS), "--save_iterations",
+                 str(VIEWER_CLI_ITERS), "--port", str(port)], viewer=True)
+        session = client.result()
+        return viewer_run(run, session, port)
+
     def kernels_line(self):
         res = self.results
         rows = []
@@ -2633,6 +3139,20 @@ class Smoke:
                 "library_ms": res["library_ms"][name],
             })
         print(json.dumps({"kernels": rows}), flush=True)
+
+
+def viewer_run(run: dict, session: dict, port: int) -> dict:
+    """What a train CLI run with the viewer and `viewer_session`'s client
+    shows: every request rendered (through K1, K5a and K2, once each), none
+    failed, the renders' launches kept out of the steps'."""
+    v = run["viewer"]
+    n = session["requests"]
+    assert f"network viewer on 127.0.0.1:{port}" in run["out"]
+    assert (v["renders"], v["errors"], v["overflowed_views"]) == (n, 0, 0), v
+    assert v["launches"] == dict.fromkeys(FORWARD, n), v
+    return dict(session, iterations=run["iterations_run"],
+                wall_s=run["wall_s"], viewer=v,
+                step_launches=run["step_launches"], skipped=run["skipped"])
 
 
 def prune_on_cpu(ck: str, scene: str) -> dict:
@@ -2711,6 +3231,9 @@ def main(argv=None) -> int:
         smoke.phase_mesh_train()
         smoke.phase_thesis()
         smoke.phase_metrics()
+        smoke.phase_depth()
+        smoke.phase_depth_chain()
+        smoke.phase_viewer()
     smoke.kernels_line()
     return finish(smoke.smi)
 
@@ -2791,18 +3314,35 @@ def multi_cli(ranks: int) -> None:
         grids.append(("2x%d" % (ranks // 2),
                       ["--n_data", "2", "--n_gauss", str(ranks // 2)]
                       + events, STEP))
+        # The same run with the viewer on and a client (its requests come
+        # in the first iterations; the broadcast of one int per iteration
+        # stays).
+        grids.append(("2x%d_viewer" % (ranks // 2),
+                      ["--n_data", "2", "--n_gauss", str(ranks // 2)]
+                      + events, STEP))
     out = {}
     with tempfile.TemporaryDirectory() as work:
         scene = os.path.join(work, "scene")
         smoke.run_cmd([sys.executable, "tools/make_synthetic_scene.py",
                        scene, str(size), str(views)], 600)
         smoke.testing.write_depth_priors(scene, size, views, synthetic_tool())
+        from priordepth_gaussiansplatting_torch.data.dataset import Scene
+        message = smoke.testing.camera_message(Scene(
+            scene, eval_split=True, shuffle=False,
+            device="cpu").test_cameras[0])
         for label, flags, path in grids:
             model = os.path.join(work, label)
+            viewer = label.endswith("_viewer")
+            if viewer:
+                port = smoke.testing.free_port_below_ephemeral()
+                flags = flags + ["--port", str(port)]
+                client = Client(port, message)
+                client.start()
             run = smoke.train_cli(
                 ["-s", scene, "-m", model, "--iterations", str(iters),
                  "--test_iterations", str(check), str(iters),
-                 "--save_iterations", str(iters)] + flags, path=path)
+                 "--save_iterations", str(iters)] + flags, path=path,
+                viewer=viewer)
             assert run["iterations_run"] == iters
             assert run["out"].count("Training complete: ") == 1
             assert "Multi-chip mesh: " in run["out"]
@@ -2816,6 +3356,11 @@ def multi_cli(ranks: int) -> None:
                               step_launches=run["step_launches"])
             if "--floating_prune_iter" in flags:
                 out[label]["events"] = multi_events(run, ranks)
+            if viewer:
+                out[label]["viewer"] = viewer_run(run, client.result(), port)
+                plain = out[label.replace("_viewer", "")]
+                out[label]["it_per_s_vs_without_viewer"] = (
+                    steady / plain["it_per_s_between_evals"])
         single = os.path.join(work, "single")
         smoke.train_cli(["-s", scene, "-m", single, "--iterations",
                          str(check), "--test_iterations", str(check),

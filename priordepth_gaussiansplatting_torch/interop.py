@@ -5,7 +5,11 @@ imports nothing of the JAX package.
 
 For the multi-rank step: :func:`shard_numpy` cuts gauss rank g's shard out
 of the global state (the rows the JAX package places on that device), and
-:func:`unshard_numpy` puts the shards' arrays back together."""
+:func:`unshard_numpy` puts the shards' arrays back together.
+
+For the depth models: :func:`depth_module_from_numpy` loads a flax
+parameter tree of the JAX package's ``depth/`` modules into the port's
+module of the same geometry."""
 
 from __future__ import annotations
 
@@ -153,3 +157,71 @@ def projected_from_numpy(mean2d, conic, opacity, rgb, depth, invdepth,
         depth=_f32(depth, device), invdepth=_f32(invdepth, device),
         radius=torch.tensor(np.asarray(radius, dtype=np.int32),
                                device=device))
+
+
+def _depth_leaf(path: tuple, value: np.ndarray):
+    """(port parameter name, array in the port's layout) of one flax leaf
+    at `path` (module names, then the leaf's): kernels (kh, kw, in, out) ->
+    (out, in, kh, kw), (in, out) -> (out, in), the attention projections'
+    (E, heads, d) and (heads, d, E) kernels and (heads, d) biases
+    flattened; LayerNorm scales become weights; other leaves keep their
+    names."""
+    *mods, leaf = path
+    parent = mods[-1] if mods else ""
+    if leaf == "kernel":
+        if value.ndim == 4:
+            value = value.transpose(3, 2, 0, 1)
+        elif value.ndim == 3 and parent in ("query", "key", "value"):
+            value = value.reshape(value.shape[0], -1).T
+        elif value.ndim == 3 and parent == "out":
+            value = value.reshape(-1, value.shape[-1]).T
+        else:
+            value = value.T
+        leaf = "weight"
+    elif leaf == "scale":
+        leaf = "weight"
+    elif leaf == "bias" and parent in ("query", "key", "value"):
+        value = value.reshape(-1)
+    return ".".join([*mods, leaf]), np.ascontiguousarray(value)
+
+
+def depth_state_dict_from_numpy(params: dict) -> dict:
+    """{port parameter name: array} of a flax parameter tree of a JAX
+    ``depth/`` module (a nested dict of arrays with flax's names, with or
+    without the top-level ``params`` key)."""
+    params = params.get("params", params)
+    out = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                name, arr = _depth_leaf(path + (k,),
+                                        np.asarray(v, dtype=np.float32))
+                out[name] = arr
+    walk(params, ())
+    return out
+
+
+def depth_module_from_numpy(params: dict, module: torch.nn.Module
+                            ) -> torch.nn.Module:
+    """`module` (a port ``depth/`` module of the same geometry) with the
+    weights of a JAX module's flax tree, on the module's device. A leaf
+    that the module lacks, a parameter that the tree lacks, or a shape
+    that differs raises ValueError naming the leaf."""
+    arrays = depth_state_dict_from_numpy(params)
+    own = module.state_dict()
+    missing = sorted(set(own) - set(arrays))
+    extra = sorted(set(arrays) - set(own))
+    if missing or extra:
+        raise ValueError(f"parameter trees differ: the module's "
+                         f"{missing} are missing from the flax tree, whose "
+                         f"{extra} the module lacks")
+    for name, arr in arrays.items():
+        if tuple(own[name].shape) != arr.shape:
+            raise ValueError(f"{name}: the flax leaf has shape {arr.shape}, "
+                             f"the module's {tuple(own[name].shape)}")
+    module.load_state_dict({k: torch.tensor(v)
+                            for k, v in arrays.items()})
+    return module

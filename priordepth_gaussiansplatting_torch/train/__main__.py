@@ -24,11 +24,17 @@ the artifacts and prints.
 The thesis events run at ``--noise_injection_iter`` (six floaters
 planted) and ``--floating_prune_iter`` (the depth-prior prune loop, which
 needs the priors of ``-d <depths>``), 0 turning either off, on one rank or
-on a grid. The network viewer (ROADMAP queue 1: Viewer) is not ported:
-without ``--disable_viewer`` the CLI says so once and trains. The last line
-is the run's summary as JSON after ``Training complete: ``, with its
-skipped updates, the kernel launches of its steps (those of the
-evaluations and the events left out), by kernel, and the events.
+on a grid. Unless ``--disable_viewer`` is given, the SIBR network viewer
+(``viewer/network_gui.py``) listens on ``--ip``/``--port`` (0: a free
+port, printed) and is polled after every iteration; a port that cannot be
+bound is reported and training goes on. On a grid rank 0 alone binds it,
+and each iteration broadcasts one int to the other ranks (go on, join a
+render's gather of the store, or wait while the GUI holds training). The
+last line is the run's summary as JSON after ``Training complete: ``,
+with its skipped updates, the kernel launches of its steps (those of the
+evaluations, the events and the viewer's renders left out), by kernel,
+the events, and with the viewer on its ``viewer`` counts (renders,
+overflowed views, their launches, dropped connections).
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from ..utils.config import (ModelConfig, OptimizationConfig, PipelineConfig,
                             add_dataclass_args, extract_dataclass,
                             torch_device_name)
 from ..utils.logging import safe_state
+from ..viewer import network_gui
 from .trainer import Trainer
 
 # Ranks the CLI starts itself run for as long as training takes.
@@ -195,32 +202,44 @@ def train(args, device: torch.device, mesh=None) -> dict:
     writer = mesh is None or mesh.rank == 0
     if writer:
         print(f"Output folder: {args.model_path} (device {device})")
-        if not args.disable_viewer:
-            print("network viewer: not ported yet (ROADMAP queue 1: "
-                  "Viewer); training without it")
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
 
     trainer = build_trainer(args, device, mesh)
     if args.start_checkpoint:
         trainer.restore(args.start_checkpoint)
+    gui, viewer_on = open_viewer(args, device, mesh)
+    hooks = []
+    if args.debug_from >= 0:
+        def debug_from(tr, it, metrics):
+            if it == max(args.debug_from, 1):
+                torch.autograd.set_detect_anomaly(True)
+        hooks.append(debug_from)
+    if viewer_on:
+        hooks.append(viewer_hook(gui, mesh))
 
-    def debug_from(tr, it, metrics):
-        if it == max(args.debug_from, 1):
-            torch.autograd.set_detect_anomaly(True)
+    def on_iteration(tr, it, metrics):
+        for hook in hooks:
+            hook(tr, it, metrics)
 
     prof = contextlib.nullcontext()
     if args.profile:
         from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
         prof = profile(activities=[ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if device.type == "cuda" else []))
-    with prof:
-        result = trainer.train(
-            iterations=trainer.opt_cfg.iterations,
-            test_iterations=set(args.test_iterations),
-            save_iterations=set(args.save_iterations),
-            checkpoint_iterations=set(args.checkpoint_iterations),
-            on_iteration=debug_from if args.debug_from >= 0 else None)
+    try:
+        with prof:
+            result = trainer.train(
+                iterations=trainer.opt_cfg.iterations,
+                test_iterations=set(args.test_iterations),
+                save_iterations=set(args.save_iterations),
+                checkpoint_iterations=set(args.checkpoint_iterations),
+                on_iteration=on_iteration if hooks else None)
+    finally:
+        if gui is not None:
+            gui.close()
+    if gui is not None:
+        result["viewer"] = dict(gui.stats, port=gui.port)
     trainer.logger.close()
     if writer:
         if args.profile:
@@ -229,6 +248,46 @@ def train(args, device: torch.device, mesh=None) -> dict:
             prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
         print(f"\nTraining complete: {json.dumps(result)}", flush=True)
     return result
+
+
+def open_viewer(args, device: torch.device, mesh=None):
+    """(rank 0's NetworkGUI or None, whether the viewer is on). Without
+    ``--disable_viewer`` rank 0 binds ``--ip``/``--port``; a bind that fails
+    is reported and the run goes on without it (``train.py:100-105``). On
+    a grid rank 0 broadcasts whether it is on."""
+    if args.disable_viewer:
+        return None, False
+    gui = None
+    if mesh is None or mesh.rank == 0:
+        try:
+            gui = network_gui.NetworkGUI(args.ip, args.port, device=device)
+            print(f"network viewer on {args.ip}:{gui.port}", flush=True)
+        except OSError as e:
+            print(f"network GUI disabled: {e}", flush=True)
+    on = gui is not None
+    if mesh is not None:
+        on = bool(network_gui.broadcast_code(int(on), mesh.device))
+    return gui, on
+
+
+def viewer_hook(gui, mesh=None):
+    """The trainer's per-iteration hook that polls the viewer, with
+    ``training_done`` from the iteration (``train.py:107-116``). Renders
+    see the whole store (on a grid every rank joins its gather); on a
+    grid rank 0 ends each poll by broadcasting IDLE and the other ranks
+    follow its codes."""
+    def poll(tr, it, metrics):
+        done = it >= tr.opt_cfg.iterations
+        if gui is None:
+            network_gui.follow(mesh.device, tr.gathered)
+            return
+        signal = (None if mesh is None else
+                  lambda code: network_gui.broadcast_code(code, mesh.device))
+        gui.poll(lambda: tr.gathered()[0], tr.bg, training_done=done,
+                 source_path=tr.model_cfg.source_path, signal=signal)
+        if mesh is not None:
+            network_gui.broadcast_code(network_gui.IDLE, mesh.device)
+    return poll
 
 
 if __name__ == "__main__":

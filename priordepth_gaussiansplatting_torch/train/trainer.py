@@ -305,7 +305,9 @@ class Trainer:
             if it in checkpoint_iterations and self.model_cfg.model_path:
                 self.save_checkpoint(it)
             if on_iteration is not None:
-                on_iteration(self, it, metrics)
+                # The hook's launches (the viewer's renders) stay out of
+                # the steps' count.
+                self._aside(base, on_iteration, self, it, metrics)
         wall = time.time() - t_start
         return {"iterations": total, "iterations_run": total - first + 1,
                 "wall_s": wall, "final_loss": self.ema_loss,

@@ -1,5 +1,5 @@
-"""Synthetic scenes and reference functions shared by tests and the chip
-smoke run.
+"""Synthetic scenes, reference functions and a network-viewer client
+shared by tests and the chip smoke run.
 
 ``random_gaussians`` draws with numpy from a seed and returns numpy arrays,
 so a test can hand the very same values to the JAX package and the port.
@@ -7,8 +7,12 @@ so a test can hand the very same values to the JAX package and the port.
 
 from __future__ import annotations
 
+import json
 import math
 import os
+import random
+import socket
+import time
 
 import numpy as np
 
@@ -192,3 +196,95 @@ def write_depth_priors(scene: str, size: int, n_views: int, tool) -> list:
                                                f"r_{i:03d}.png"))
         out.append(inv.astype(np.float32))
     return out
+
+
+def free_port_below_ephemeral(host: str = "127.0.0.1") -> int:
+    """A free port of `host` below the kernel's ephemeral range, for a
+    server that a client dials before the server has bound it. Sockets
+    that bind port 0 (gloo's and NCCL's listeners, other tests' servers)
+    take ports of the ephemeral range, so none of them can take this one
+    between the check and the server's bind, and the client cannot reach
+    one of theirs."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except OSError:
+        low = 32768
+    for port in random.Random().sample(range(10_000, low), 200):
+        with socket.socket() as sock:
+            try:
+                sock.bind((host, port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError("no free port below the ephemeral range")
+
+
+def camera_message(cam: camlib.Camera, train: bool = True,
+                   keep_alive: bool = False,
+                   scaling_modifier: float = 1.0) -> dict:
+    """The request a SIBR remote-viewer client sends for `cam` (the
+    inverse of ``viewer/network_gui.py::_decode_camera``), with its
+    flags."""
+    view = cam.world_view.detach().cpu().numpy().T.copy()
+    view[:, 1] = -view[:, 1]
+    view[:, 2] = -view[:, 2]
+    proj = cam.full_proj.detach().cpu().numpy().T.copy()
+    proj[:, 1] = -proj[:, 1]
+    return {"resolution_x": cam.width, "resolution_y": cam.height,
+            "train": train, "fov_y": cam.fovy, "fov_x": cam.fovx,
+            "z_near": cam.znear, "z_far": cam.zfar, "keep_alive": keep_alive,
+            "scaling_modifier": scaling_modifier,
+            "view_matrix": view.reshape(-1).tolist(),
+            "view_projection_matrix": proj.reshape(-1).tolist()}
+
+
+class ViewerClient:
+    """A client of the network viewer's protocol, as the SIBR app speaks
+    it."""
+
+    def __init__(self, host: str, port: int, timeout: float = 120.0):
+        self.sock = socket.create_connection((host, port), timeout=timeout)
+
+    def _recv(self, n: int) -> bytes:
+        buf = bytearray()
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError(f"server closed after {len(buf)} of "
+                                      f"{n} bytes")
+            buf += chunk
+        return bytes(buf)
+
+    def request(self, message: dict):
+        """Send one request; (the H×W×3 uint8 image or None, the verify
+        string). Raises ConnectionError if the server dropped the
+        request."""
+        payload = json.dumps(message).encode("utf-8")
+        self.sock.sendall(len(payload).to_bytes(4, "little") + payload)
+        w, h = message["resolution_x"], message["resolution_y"]
+        image = None
+        if w and h:
+            image = np.frombuffer(self._recv(w * h * 3),
+                                  np.uint8).reshape(h, w, 3)
+        n = int.from_bytes(self._recv(4), "little")
+        return image, self._recv(n).decode("ascii")
+
+    def close(self):
+        self.sock.close()
+
+
+def connect_viewer(port: int, deadline: float = 60.0,
+                   host: str = "127.0.0.1") -> ViewerClient:
+    """A ViewerClient of a server that may not listen yet, dialled every
+    50 ms for up to `deadline` s. Pick `port` with
+    :func:`free_port_below_ephemeral`, so that what answers is that
+    server."""
+    t0 = time.monotonic()
+    while True:
+        try:
+            return ViewerClient(host, port)
+        except ConnectionRefusedError:
+            if time.monotonic() - t0 > deadline:
+                raise
+            time.sleep(0.05)

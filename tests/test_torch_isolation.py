@@ -137,6 +137,23 @@ def _feature_table():
     prune.FeatureTable.empty(8)
 
 
+def _depth_model():
+    from priordepth_gaussiansplatting_torch.depth import config
+    config.build_model(config.get_config(embed_dim=64, encoder_depth=1))
+
+
+def _depth_priors(tmp_path):
+    from priordepth_gaussiansplatting_torch.depth import infer, layers, model
+    vit = layers.build(model.ViTEncoder, embed_dim=64, depth=1,
+                       device="cpu")
+    infer.generate_depth_priors(vit, str(tmp_path), str(tmp_path / "d"))
+
+
+def _viewer():
+    from priordepth_gaussiansplatting_torch.viewer import network_gui
+    network_gui.NetworkGUI("127.0.0.1", 0)
+
+
 @pytest.mark.parametrize("entry", ["resolve_device", "look_at_camera",
                                    "load_model_snapshot", "render_cli",
                                    "interop", "create_from_points",
@@ -144,7 +161,8 @@ def _feature_table():
                                    "initialize_multihost", "train_cli",
                                    "perf_probe", "trainer",
                                    "load_checkpoint", "densify_probe",
-                                   "bench", "metrics_cli", "feature_table"])
+                                   "bench", "metrics_cli", "feature_table",
+                                   "depth_model", "depth_priors", "viewer"])
 def test_entry_points_need_the_card_or_cpu(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -165,6 +183,9 @@ def test_entry_points_need_the_card_or_cpu(entry, tmp_path):
         "bench": _bench,
         "metrics_cli": lambda: _metrics_cli(tmp_path),
         "feature_table": _feature_table,
+        "depth_model": _depth_model,
+        "depth_priors": lambda: _depth_priors(tmp_path),
+        "viewer": _viewer,
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -11,8 +11,6 @@ process joins it as one rank."""
 import collections
 import json
 import os
-import random
-import socket
 import subprocess
 import sys
 
@@ -21,6 +19,7 @@ import torch
 from priordepth_gaussiansplatting_torch import render as render_cli
 from priordepth_gaussiansplatting_torch.parallel import mesh as pmesh
 from priordepth_gaussiansplatting_torch.train import __main__ as train_cli
+from priordepth_gaussiansplatting_torch.utils import testing as T
 from test_torch_mesh_trainer import make_scene, port_trainer
 
 torch.set_num_threads(2)
@@ -97,29 +96,12 @@ def test_train_cli_two_data_ranks(tmp_path, monkeypatch, capfd):
     assert len(os.listdir(rdir)) == 4
 
 
-def free_port_below_ephemeral() -> int:
-    """A free localhost port below the kernel's ephemeral range: gloo's
-    listeners in other tests bind ephemeral ports, so none of them can
-    take this one between the check and the store's bind (and this test's
-    store client cannot reach one of theirs)."""
-    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
-        low = int(f.read().split()[0])
-    for port in random.Random(os.getpid()).sample(range(10_000, low), 200):
-        with socket.socket() as sock:
-            try:
-                sock.bind(("localhost", port))
-            except OSError:
-                continue
-            return port
-    raise RuntimeError("no free port below the ephemeral range")
-
-
 def test_train_cli_joins_the_environments_group(tmp_path):
     """Two processes with torchrun's variables (a TCP store on localhost)
     train over (1, 2) as one group: rank 0 writes and prints."""
     root = make_scene(str(tmp_path / "scene"))
     model = str(tmp_path / "model")
-    port = free_port_below_ephemeral()
+    port = T.free_port_below_ephemeral("localhost")
     env = {k: v for k, v in os.environ.items()
            if k not in train_cli.GROUP_ENV}
     env.update(PYTHONPATH=REPO, MASTER_ADDR="localhost",
