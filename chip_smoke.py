@@ -5,6 +5,7 @@
     python3 chip_smoke.py --ranks 4  # only the multi-rank phases, 4 cards
     python3 chip_smoke.py --turns DIR  # only K7 and K1 against DIR's
     python3 chip_smoke.py --phases depth viewer  # device, train_cli, these
+    python3 chip_smoke.py --ranks 4 --phases depth_dp  # only that one
 
 Builds the port's CUDA kernels from ``priordepth_gaussiansplatting_torch/
 csrc/`` (one nvcc per source, in parallel), then runs, printing one JSON
@@ -129,7 +130,19 @@ line per phase:
      the train CLI with the viewer on and a client that holds training for
      three requests and lets it go on (equal images while held, a later
      one after; the renders' launches apart from the steps');
- 19. kernels: one object per kernel (the line before the card's line).
+ 19. depth_train: the depth trainer (``depth/trainer.py``, no kernel of the
+     table): the repo's depth configuration at 128², batch 4, 3 steps from
+     seeded weights on raycast views, on the card against the CPU and with
+     the plain attention form against the fused one (losses within 1e-4
+     relative, parameter changes at the Adam tolerance of
+     ``utils/testing.py::adam_agreement``); then ``docs/DEPTH_RUN_r05.md``'s
+     recipe through ``depth_train_proof.run`` (ViT-768 x 12, DPT decoder, 64
+     normed bins, 256², batch 8, 400 steps, 40 + 8 views): steps/s, ms a
+     step, a step's FLOP (``FlopCounterMode``) and its f32 bound, peak
+     memory, the losses (finite; the last 20 steps' mean at most half the
+     first 20's), held-out a1/abs_rel/rmse, and a checkpoint written and
+     reloaded into a model of other weights predicting the same depth;
+ 20. kernels: one object per kernel (the line before the card's line).
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -153,11 +166,20 @@ count the same after each), the same (2, 2) run with the network viewer on
 (rank 0 binds it) and a client that holds training for three requests,
 its it/s beside the run without the viewer, it/s and held-out PSNR, and a
 single-rank checkpoint restored over (1, N), whose shards' active rows
-differ by at most one.
+differ by at most one. Then phase depth_dp: the depth trainer over N
+cards (NCCL; the repo's configuration at 256², global batch 8, the first
+20 steps of the recipe's 400-step schedule): every rank's losses equal,
+at every step rank 0's loss and averaged gradients against the whole
+global batch on rank 0 alone at the same parameters (loss within 1e-4
+relative, gradients at the gradient tolerance), then a one-rank run over
+the same batches (its first loss within 1e-4; the drift of the later ones
+printed), and steps/s of one rank and of N. ``--ranks N --phases NAME``
+runs only the named ones of multi_rank, multi_cli and depth_dp.
 
 With ``--phases NAME ...`` it builds the kernels and runs phase device,
-train_cli and the named ones of mesh_train, thesis, metrics, depth,
-depth_chain and viewer, without the kernels line.
+the named ones of train_cli, mesh_train, thesis, metrics, depth,
+depth_chain, viewer and depth_train (train_cli first when another of them
+uses its scene: all but depth_train do), without the kernels line.
 
 Any failure raises: the script exits non-zero, and it does so before
 printing a result when there is no CUDA card or when the port is not
@@ -296,9 +318,32 @@ CHAIN_ITERS = 300
 # viewer: requests per camera in-process, the train CLI run's iterations
 # with a client that holds training for VIEWER_HELD requests.
 VIEWER_REQUESTS, VIEWER_CLI_ITERS, VIEWER_HELD = 10, 100, 3
-# The phases that --phases may select, in their order.
+# depth_train: the repo's depth configuration (DEPTH_SEED's weights, max
+# depth 8 m as the proof's) on DEPTH_CHECK views of the raycast scene, its
+# DEPTH_CHECK_STEPS steps on the card against the CPU and with the plain
+# attention form against the fused one (losses within DEPTH_LOSS_RTOL,
+# parameters at the Adam tolerance of utils/testing.py::adam_agreement);
+# then docs/DEPTH_RUN_r05.md's recipe (ViT-768 x 12, DPT decoder, 64
+# normed bins, 256², batch 8, 400 steps, lr 3e-4; 40 + 8 raycast views)
+# through depth_train_proof at full width.
+DEPTH_CHECK, DEPTH_CHECK_SIDE, DEPTH_CHECK_STEPS = 4, 128, 3
+DEPTH_LOSS_RTOL = 1e-4
+DEPTH_R05 = ["400", "256", "8", "--embed_dim", "768", "--encoder_depth",
+             "12", "--n_bins", "64", "--bin_centers_type", "normed", "--lr",
+             "3e-4", "--tag", "smoke"]
+# depth_dp (--ranks): the repo's configuration at 256² over DP_VIEWS raycast
+# views, global batch 8 (8 / N a rank), the first 20 steps of the recipe's
+# 400-step OneCycle schedule, against one rank. (At the peak rate of a
+# 20-step schedule the losses of one rank alone move by 1e-3 within five
+# steps with the thread count of the CPU's reductions: rounding-level
+# differences grow there, whatever computes them.)
+DP_SIDE, DP_VIEWS, DP_BATCH, DP_STEPS, DP_SCHEDULE = 256, 16, 8, 20, 400
+# The phases that --phases may select, in their order; all but
+# depth_train use train_cli's scene.
 CLI_PHASES = ("train_cli", "mesh_train", "thesis", "metrics", "depth",
-              "depth_chain", "viewer")
+              "depth_chain", "viewer", "depth_train")
+# ... and with --ranks N.
+RANK_PHASES = ("multi_rank", "multi_cli", "depth_dp")
 GRAD_ATOL, GRAD_RTOL = 3e-4, 2e-3
 
 
@@ -3124,6 +3169,136 @@ class Smoke:
         session = client.result()
         return viewer_run(run, session, port)
 
+    # --- the depth model's training half ------------------------------------
+
+    def phase_depth_train(self):
+        """The depth trainer on the card: the repo's configuration against
+        the CPU and its plain attention against the fused one, then
+        DEPTH_RUN_r05's recipe through depth_train_proof, its step's
+        operation bound, and a checkpoint written and reloaded."""
+        t, t_phase = self.torch, time.perf_counter()
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from priordepth_gaussiansplatting_torch import (
+            depth_train_proof as proof)
+        from priordepth_gaussiansplatting_torch.depth import (config, layers,
+                                                              trainer)
+        cfg = config.get_config("depth", "train", "nyu",
+                                max_depth=proof.MAX_DEPTH)
+        opt = trainer.DepthTrainerConfig(lr=3e-4, epochs=1,
+                                         steps_per_epoch=400,
+                                         max_depth=proof.MAX_DEPTH)
+
+        def steps(device, fused):
+            """(losses, {name: array}) of DEPTH_CHECK_STEPS steps from
+            DEPTH_SEED's weights on `device`, the attention fused or in its
+            plain form."""
+            model = config.build_model(
+                cfg, device=device,
+                generator=t.Generator().manual_seed(DEPTH_SEED))
+            layers.use_fused_attention(model, fused)
+            tr = trainer.DepthTrainer(model, opt, device=device)
+            out = [tr.train_step(*batch) for _ in range(DEPTH_CHECK_STEPS)]
+            return out, {n: p.detach().cpu().numpy()
+                         for n, p in model.named_parameters()}
+        imgs, depths = proof.make_rgbd(DEPTH_CHECK, DEPTH_CHECK_SIDE)
+        masks = np.isfinite(depths) & (depths > 0.05) & (depths
+                                                         < proof.MAX_DEPTH)
+        batch = (imgs, np.where(masks, depths, 1.0), masks)
+        before = {n: p.detach().numpy() for n, p in config.build_model(
+            cfg, device="cpu", generator=t.Generator().manual_seed(
+                DEPTH_SEED)).named_parameters()}
+        # The Adam tolerance in units of lr·k, lr the configured rate; the
+        # share within 1e-3 of the rates the k updates applied (OneCycle's
+        # first, 1/25 of it) is printed beside it.
+        lr_k = 3e-4 * DEPTH_CHECK_STEPS
+        applied = sum(trainer.onecycle_lr(s, 400, 3e-4)
+                      for s in range(DEPTH_CHECK_STEPS))
+        runs, secs = {}, {}
+        for label, device, fused in (("card", self.dev, True),
+                                     ("card_plain", self.dev, False),
+                                     ("cpu", t.device("cpu"), True)):
+            t0 = time.perf_counter()
+            runs[label] = steps(device, fused)
+            secs[label] = time.perf_counter() - t0
+        check = {}
+        for label, other in (("card_vs_cpu", "cpu"),
+                             ("fused_vs_plain", "card_plain")):
+            (la, pa), (lb, pb) = runs["card"], runs[other]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
+            share, worst = self.testing.adam_agreement(pa, pb, before, lr_k)
+            assert np.isfinite(la).all() and rel <= DEPTH_LOSS_RTOL, (
+                label, la, lb)
+            assert share >= 0.999 and worst <= 2, (label, share, worst)
+            share_applied, worst_applied = self.testing.adam_agreement(
+                pa, pb, before, applied)
+            check[label] = dict(loss_rel=rel, params_within_share=share,
+                                params_worst_in_lr=worst,
+                                applied_rates_share=share_applied,
+                                applied_rates_worst=worst_applied)
+        # DEPTH_RUN_r05's recipe at full width.
+        args = proof.parse_args(DEPTH_R05 + ["--out_dir", os.path.join(
+            self.work, "depth_run")])
+        t.cuda.synchronize()
+        t.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = proof.run(args, self.dev)
+        t.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = t.cuda.max_memory_allocated() / 2 ** 30
+        pay, tr = res["payload"], res["trainer"]
+        losses = np.asarray(pay["losses"])
+        first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+        assert np.isfinite(losses).all() and last <= 0.5 * first, (first,
+                                                                    last)
+        test_img, test_d, test_m = res["test"]
+        x = t.from_numpy(test_img[:args.batch]).to(self.dev)
+        with FlopCounterMode(display=False) as flops:
+            loss = tr.loss(x, t.from_numpy(test_d[:args.batch]),
+                           t.from_numpy(test_m[:args.batch]))
+            t.autograd.grad(loss, tr.params)
+        step_flop = flops.get_total_flops()
+        # A checkpoint, reloaded into a model drawn from another seed,
+        # predicts the same held-out depth.
+        tr.cfg.checkpoint_dir = os.path.join(self.work, "depth_ck")
+        tr.save_checkpoint("r05.pkl")
+        fresh = trainer.DepthTrainer(config.build_model(
+            res["config"], generator=t.Generator().manual_seed(1),
+            device=self.dev), tr.cfg, device=self.dev)
+        fresh.load_checkpoint(os.path.join(tr.cfg.checkpoint_dir,
+                                           "r05.pkl"))
+        with t.inference_mode():
+            x = t.from_numpy(test_img).to(self.dev).permute(0, 3, 1, 2)
+            again = fresh.model(x)["metric_depth"].cpu().numpy()
+        again = np.clip(again, tr.cfg.min_depth, proof.MAX_DEPTH)
+        reload_diff = float(np.abs(again - res["pred"]).max())
+        assert reload_diff <= 1e-6 * float(np.abs(res["pred"]).max()), (
+            reload_diff)
+        # Where a step's time goes: three more steps (on held-out views,
+        # after their evaluation) under the profiler.
+        held = [t.from_numpy(a[:args.batch]).to(self.dev)
+                for a in res["test"]]
+        prof = self.profile(lambda _: tr.train_step(*held), [0, 1, 2])
+        ev = pay["eval"]
+        emit("depth_train", ok=True,
+             check=dict(config={k: cfg[k] for k in (
+                 "embed_dim", "encoder_depth", "n_bins", "max_depth")},
+                 side=DEPTH_CHECK_SIDE, batch=DEPTH_CHECK,
+                 steps=DEPTH_CHECK_STEPS, losses={k: v[0] for k, v in
+                                                  runs.items()},
+                 seconds=secs, **check),
+             r05=dict(args=DEPTH_R05, n_params=pay["n_params"],
+                      steps_per_s=pay["steps_per_s"], wall_s=pay["wall_s"],
+                      ms_per_step=pay["ms_per_step"],
+                      step_flop=step_flop,
+                      bound_ms=step_flop / CARD_F32_OPS_PER_S * 1e3,
+                      peak_mem_gib=peak, loss_0=float(losses[0]),
+                      loss_last=float(losses[-1]), first20_mean=first,
+                      last20_mean=last, a1=ev["a1"], abs_rel=ev["abs_rel"],
+                      rmse=ev["rmse"], eval=ev, run_s=run_s,
+                      reload_max_abs_diff=reload_diff, profile=prof),
+             seconds=time.perf_counter() - t_phase, nvidia_smi=self.smi)
+
     def kernels_line(self):
         res = self.results
         rows = []
@@ -3182,15 +3357,20 @@ def main(argv=None) -> int:
              "one per card, in an NCCL group, then the train CLI over N "
              "cards (needs N cards)")
     parser.add_argument(
-        "--phases", nargs="+", choices=CLI_PHASES,
+        "--phases", nargs="+", choices=CLI_PHASES + RANK_PHASES,
         help="run only phase device and these phases of the CLIs, in their "
-             "order (train_cli first: the others use its scene and model); "
-             "no kernels line")
+             "order (train_cli first when one uses its scene and model); "
+             "no kernels line. With --ranks, only these of its phases")
     parser.add_argument(
         "--turns", metavar="DIR",
         help="run only the turns phase: K7 and K1 in turns against those "
              "built from DIR's priordepth_gaussiansplatting_torch/csrc/")
     args = parser.parse_args(argv)
+    wrong = set(args.phases or ()) - set(RANK_PHASES if args.ranks > 1
+                                         else CLI_PHASES)
+    if wrong:
+        parser.error(f"phases {sorted(wrong)} do not run with --ranks "
+                     f"{args.ranks}")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3201,7 +3381,8 @@ def main(argv=None) -> int:
     build_seconds = build.build(kernels.KERNELS)
     build_wall = time.perf_counter() - t0
     if args.ranks > 1:
-        return main_multi(args.ranks, build_wall)
+        return main_multi(args.ranks, build_wall,
+                          args.phases or RANK_PHASES)
     smoke = Smoke()
     if args.turns:
         smoke.phase_turns(args.turns)
@@ -3210,8 +3391,9 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as work:
             smoke.work = work
             smoke.phase_device(build_seconds, build_wall)
+            scene = set(args.phases) & set(CLI_PHASES[1:-1])
             for name in CLI_PHASES:
-                if name == "train_cli" or name in args.phases:
+                if name in args.phases or (name == "train_cli" and scene):
                     getattr(smoke, f"phase_{name}")()
         return finish(smoke.smi)
     with tempfile.TemporaryDirectory() as work:
@@ -3234,6 +3416,7 @@ def main(argv=None) -> int:
         smoke.phase_depth()
         smoke.phase_depth_chain()
         smoke.phase_viewer()
+        smoke.phase_depth_train()
     smoke.kernels_line()
     return finish(smoke.smi)
 
@@ -3248,8 +3431,9 @@ def finish(smi: str) -> int:
     return 0
 
 
-def main_multi(ranks: int, build_wall: float) -> int:
-    """``--ranks N``: the sharded step over N cards, one rank each."""
+def main_multi(ranks: int, build_wall: float, phases=RANK_PHASES) -> int:
+    """``--ranks N``: the sharded step, the train CLI and the depth
+    trainer over N cards, one rank each (`phases`: which of them)."""
     import torch
     from priordepth_gaussiansplatting_torch.parallel import mesh as pmesh
     if torch.cuda.device_count() < ranks:
@@ -3260,21 +3444,132 @@ def main_multi(ranks: int, build_wall: float) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        per_rank = pmesh.spawn(ranks, multi_rank, backend="nccl",
-                               store_dir=tmp, timeout=900)
-        wall = time.perf_counter() - t0
-    emit("multi_rank", ok=True, ranks=ranks, n=FULL_N, width=FULL_W,
-         height=FULL_H, steps=TRAIN_STEPS, build_wall_s=build_wall,
-         spawn_wall_s=wall, nvidia_smi=smi.splitlines(),
-         rank0=per_rank[0],
-         step_ms_by_rank={label: [r["grids"][label]["step_ms"]
-                                  for r in per_rank]
-                          for label in per_rank[0]["grids"]},
-         single_step_ms_by_rank=[r["single_step_ms"] for r in per_rank])
-    multi_cli(ranks)
+    if "multi_rank" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            per_rank = pmesh.spawn(ranks, multi_rank, backend="nccl",
+                                   store_dir=tmp, timeout=900)
+            wall = time.perf_counter() - t0
+        emit("multi_rank", ok=True, ranks=ranks, n=FULL_N, width=FULL_W,
+             height=FULL_H, steps=TRAIN_STEPS, build_wall_s=build_wall,
+             spawn_wall_s=wall, nvidia_smi=smi.splitlines(),
+             rank0=per_rank[0],
+             step_ms_by_rank={label: [r["grids"][label]["step_ms"]
+                                      for r in per_rank]
+                              for label in per_rank[0]["grids"]},
+             single_step_ms_by_rank=[r["single_step_ms"] for r in per_rank])
+    if "multi_cli" in phases:
+        multi_cli(ranks)
+    if "depth_dp" in phases:
+        depth_dp(ranks, smi)
     return finish(smi)
+
+
+def depth_dp_run(rank: int, world: int, data: str,
+                 device: str = "cuda") -> dict:
+    """The depth trainer with the repo's configuration from DEPTH_SEED's
+    weights on card `rank` (or on the CPU, for a rehearsal over gloo),
+    this rank's rows of each global batch (the group, if any, is the
+    world): DP_STEPS checked steps, then DP_STEPS timed ones. In the
+    checked steps of a group, rank 0 also takes the loss and gradients of
+    the whole global batch alone at the same parameters: the group's must
+    agree (loss within DEPTH_LOSS_RTOL, gradients within GRAD_ATOL
+    max|g| + GRAD_RTOL |g|)."""
+    import torch
+    from priordepth_gaussiansplatting_torch.depth import config, trainer
+    cuda = device == "cuda"
+    dev = torch.device("cuda", rank) if cuda else torch.device(device)
+    with np.load(data) as f:
+        imgs, depths, masks, draws = (f["imgs"], f["depths"], f["masks"],
+                                      f["draws"])
+    cfg = config.get_config("depth", "train", "nyu", max_depth=8.0)
+    tr = trainer.DepthTrainer(config.build_model(
+        cfg, generator=torch.Generator().manual_seed(DEPTH_SEED),
+        device=dev), trainer.DepthTrainerConfig(
+            lr=3e-4, epochs=1, steps_per_epoch=DP_SCHEDULE, max_depth=8.0),
+        device=dev)
+    data = [torch.from_numpy(a).to(dev) for a in (imgs, depths, masks)]
+    rows = slice(rank * DP_BATCH // world, (rank + 1) * DP_BATCH // world)
+    checked = rank == 0 and world > 1
+
+    def alone(x, d, m):  # the trainer's loss, this rank alone
+        loss = trainer.depth_loss(tr.model, tr.cfg, x.permute(0, 3, 1, 2),
+                                  d, m)
+        return float(loss), torch.autograd.grad(loss, tr.params)
+
+    out = dict(losses=[], loss_rel=[], grad_worst=[])
+    for idx in draws:
+        full = [a[torch.from_numpy(idx).to(dev)] for a in data]
+        if checked:
+            ref_loss, ref_grads = alone(*full)
+        loss, grads = tr.gradients(*(a[rows] for a in full))
+        out["losses"].append(float(loss))
+        if checked:
+            scale = max(float(g.abs().max()) for g in ref_grads)
+            out["loss_rel"].append(abs(float(loss) - ref_loss) / ref_loss)
+            out["grad_worst"].append(max(
+                float(((a - b).abs() - GRAD_RTOL * b.abs()).max())
+                for a, b in zip(grads, ref_grads)) / scale)
+        tr.apply_gradients(grads)
+        tr.step_count += 1
+    if checked:
+        assert max(out["loss_rel"]) <= DEPTH_LOSS_RTOL, out["loss_rel"]
+        assert max(out["grad_worst"]) <= GRAD_ATOL, out["grad_worst"]
+    if cuda:
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for idx in draws:
+        idx = torch.from_numpy(idx[rows]).to(dev)
+        tr.train_step(*(a[idx] for a in data))
+    secs = time.perf_counter() - t0
+    out.update(steps_per_s=len(draws) / secs,
+               ms_per_step=1e3 * secs / len(draws),
+               peak_mem_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                             if cuda else None))
+    return out
+
+
+def depth_dp(ranks: int, smi: str, device: str = "cuda") -> None:
+    """Phase depth_dp of ``--ranks N``: the depth trainer over N cards
+    (NCCL), 8 / N samples a rank. Every rank's losses the same; at every
+    step rank 0's loss and averaged gradients those of the global batch
+    on one rank at the same parameters; then a run on one rank from the
+    same weights over the same batches: its first loss within
+    DEPTH_LOSS_RTOL, the later ones printed beside the group's (rounding
+    differences grow along a trajectory); steps/s of each."""
+    from priordepth_gaussiansplatting_torch import depth_train_proof as proof
+    from priordepth_gaussiansplatting_torch.parallel import mesh as pmesh
+    t_phase = time.perf_counter()
+    imgs, depths = proof.make_rgbd(DP_VIEWS, DP_SIDE)
+    masks = np.isfinite(depths) & (depths > 0.05) & (depths < 8.0)
+    rng = np.random.RandomState(0)
+    draws = np.stack([rng.choice(DP_VIEWS, DP_BATCH, replace=False)
+                      for _ in range(DP_STEPS)])
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "rgbd.npz")
+        np.savez(data, imgs=imgs, depths=np.where(masks, depths, 1.0),
+                 masks=masks, draws=draws)
+        per_rank = pmesh.spawn(ranks, depth_dp_run, data, device,
+                               backend=pmesh.backend_for(device),
+                               store_dir=tmp, timeout=600)
+        single = depth_dp_run(0, 1, data, device)
+    for r in per_rank:
+        assert r["losses"] == per_rank[0]["losses"], r["losses"]
+    many, one = per_rank[0]["losses"], single["losses"]
+    drift = [abs(a - b) / abs(b) for a, b in zip(many, one)]
+    assert np.isfinite(many).all() and drift[0] <= DEPTH_LOSS_RTOL, drift
+    emit("depth_dp", ok=True, ranks=ranks, side=DP_SIDE, views=DP_VIEWS,
+         global_batch=DP_BATCH, steps=DP_STEPS, schedule=DP_SCHEDULE,
+         losses=many, lockstep_loss_rel_max=max(per_rank[0]["loss_rel"]),
+         lockstep_grad_worst_max=max(per_rank[0]["grad_worst"]),
+         single_rank_losses=one, single_rank_drift=drift,
+         steps_per_s={"1": single["steps_per_s"],
+                      str(ranks): per_rank[0]["steps_per_s"]},
+         ms_per_step={"1": single["ms_per_step"],
+                      str(ranks): [r["ms_per_step"] for r in per_rank]},
+         peak_mem_gib={"1": single["peak_mem_gib"],
+                       str(ranks): per_rank[0]["peak_mem_gib"]},
+         seconds=time.perf_counter() - t_phase, nvidia_smi=smi.splitlines())
 
 
 def multi_events(run: dict, ranks: int) -> list:

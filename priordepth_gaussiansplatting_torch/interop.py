@@ -9,7 +9,8 @@ of the global state (the rows the JAX package places on that device), and
 
 For the depth models: :func:`depth_module_from_numpy` loads a flax
 parameter tree of the JAX package's ``depth/`` modules into the port's
-module of the same geometry."""
+module of the same geometry, and :func:`depth_params_to_numpy` gives a
+port module's weights back as that tree."""
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from .core.cameras import Camera
+from .depth.layers import SelfAttention
 from .device import resolve_device
 from .models.gaussians import PARAM_NAMES as PARAM_FIELDS
 from .models.gaussians import GaussianParams, GaussianState
@@ -225,3 +227,50 @@ def depth_module_from_numpy(params: dict, module: torch.nn.Module
     module.load_state_dict({k: torch.tensor(v)
                             for k, v in arrays.items()})
     return module
+
+
+def _flax_leaf(leaf: str, mod: torch.nn.Module, parent,
+               value: np.ndarray):
+    """(flax leaf name, array in flax's layout) of the port parameter
+    `leaf` of `mod` (whose parent module is `parent`): the inverse of
+    :func:`_depth_leaf`."""
+    attention = isinstance(parent, SelfAttention)
+    if isinstance(mod, torch.nn.Conv2d) and leaf == "weight":
+        return "kernel", value.transpose(2, 3, 1, 0)
+    if isinstance(mod, torch.nn.Linear) and leaf == "weight":
+        value = value.T
+        if attention and mod is parent.out:
+            return "kernel", value.reshape(parent.num_heads, -1,
+                                           value.shape[-1])
+        if attention:
+            return "kernel", value.reshape(value.shape[0],
+                                           parent.num_heads, -1)
+        return "kernel", value
+    if isinstance(mod, torch.nn.Linear) and attention and mod is not \
+            parent.out:
+        return leaf, value.reshape(parent.num_heads, -1)
+    if isinstance(mod, torch.nn.LayerNorm) and leaf == "weight":
+        return "scale", value
+    return leaf, value
+
+
+def depth_params_to_numpy(module: torch.nn.Module) -> dict:
+    """The flax variables ``{"params": tree}`` of a port ``depth/`` module:
+    nested dicts of float32 numpy arrays with flax's names and layouts
+    (``kernel`` for convolution and dense weights, transposed back, the
+    attention projections' as (E, heads, d) and (heads, d, E) with (heads,
+    d) biases; ``scale`` for LayerNorm weights), which the JAX package's
+    ``apply`` takes and :func:`depth_module_from_numpy` loads back."""
+    tree: dict = {}
+    mods = dict(module.named_modules())
+    for name, p in module.named_parameters():
+        *path, leaf = name.split(".")
+        mod = mods[".".join(path)]
+        parent = mods[".".join(path[:-1])] if path else None
+        key, arr = _flax_leaf(leaf, mod, parent,
+                              p.detach().cpu().numpy().astype(np.float32))
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[key] = np.ascontiguousarray(arr)
+    return {"params": tree}

@@ -198,6 +198,24 @@ def write_depth_priors(scene: str, size: int, n_views: int, tool) -> list:
     return out
 
 
+def adam_agreement(got: dict, want: dict, before: dict,
+                   lr_k: float) -> tuple:
+    """How closely two optimizer runs from the same parameters `before`
+    agree, each a {name: array} after k AdamW steps: (share of entries
+    whose change differs by at most 1e-3·lr_k, largest difference in
+    units of lr_k), lr_k the sum of the k updates' learning rates. Adam's
+    first updates are about lr·sign(g), so an entry whose gradient is at
+    rounding level in both runs can move by ±lr in one and not the
+    other; the depth trainer's checks ask for a share >= 0.999 and a
+    largest difference <= 2."""
+    diff = np.concatenate([
+        np.abs((np.asarray(got[n]) - before[n])
+               - (np.asarray(want[n]) - before[n])).ravel()
+        for n in before])
+    return (float((diff <= 1e-3 * lr_k).mean()),
+            float(diff.max() / lr_k))
+
+
 def free_port_below_ephemeral(host: str = "127.0.0.1") -> int:
     """A free port of `host` below the kernel's ephemeral range, for a
     server that a client dials before the server has bound it. Sockets

@@ -149,6 +149,18 @@ def _depth_priors(tmp_path):
     infer.generate_depth_priors(vit, str(tmp_path), str(tmp_path / "d"))
 
 
+def _depth_trainer():
+    from priordepth_gaussiansplatting_torch.depth import layers, model, trainer
+    vit = layers.build(model.ViTEncoder, embed_dim=64, depth=1,
+                       device="cpu")
+    trainer.DepthTrainer(vit, trainer.DepthTrainerConfig())
+
+
+def _depth_train_proof(tmp_path):
+    from priordepth_gaussiansplatting_torch import depth_train_proof
+    depth_train_proof.main(["2", "32", "2", "--out_dir", str(tmp_path)])
+
+
 def _viewer():
     from priordepth_gaussiansplatting_torch.viewer import network_gui
     network_gui.NetworkGUI("127.0.0.1", 0)
@@ -162,7 +174,8 @@ def _viewer():
                                    "perf_probe", "trainer",
                                    "load_checkpoint", "densify_probe",
                                    "bench", "metrics_cli", "feature_table",
-                                   "depth_model", "depth_priors", "viewer"])
+                                   "depth_model", "depth_priors", "viewer",
+                                   "depth_trainer", "depth_train_proof"])
 def test_entry_points_need_the_card_or_cpu(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -186,6 +199,8 @@ def test_entry_points_need_the_card_or_cpu(entry, tmp_path):
         "depth_model": _depth_model,
         "depth_priors": lambda: _depth_priors(tmp_path),
         "viewer": _viewer,
+        "depth_trainer": _depth_trainer,
+        "depth_train_proof": lambda: _depth_train_proof(tmp_path),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
