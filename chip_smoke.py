@@ -86,7 +86,7 @@ line per phase:
      run's logged ones; a resume from its iteration-500 checkpoint for 20
      iterations, and its it/s beside train_cli's;
  14. thesis: train_cli's scene with inverse-depth priors (16-bit PNGs under
-     ``depths/``, from the scene tool's own ``camera_pose`` and
+     ``depths/``, from the scene generator's own ``camera_pose`` and
      ``render_view``) through the train CLI with ``-d depths`` for 1,000
      iterations, the noise injection at 700 (+6 active rows) and the
      floating-object prune at 900 (its deletions and views printed, each
@@ -122,7 +122,25 @@ line per phase:
      points, priors by that model on the card, ``make_depth_scale`` (a
      non-empty ``depth_params.json``), then the train CLI with ``-d
      depths`` for 300 iterations (finite losses, no skipped update);
- 18. viewer: the network viewer in-process over loopback, a client asking
+ 18. chain: the chain CLIs on train_cli's scene, through executable
+     stand-ins for ffmpeg, COLMAP, DepthAnythingV2's ``run.py`` and the
+     SIBR app (``utils/standins.py``; none of the tools is installed):
+     ``python -m priordepth_gaussiansplatting_torch.train_video`` (frames)
+     -> ``train_image`` -> ``convert`` (the four COLMAP commands, the
+     ``sparse/*`` move into ``sparse/0``) -> ``run.py`` (the repo's depth
+     configuration with DEPTH_SEED's weights on the card) ->
+     ``make_depth_scale`` -> the train CLI with ``-d depths`` and
+     train_cli's flags for 300 iterations (every command in the order of
+     the root scripts, finite fitted scales, no skipped update, finite
+     losses and held-out PSNR, each step kernel once per iteration on the
+     card), then ``SIBR_viewer --with_metrics`` (the render and metrics
+     CLIs, a finite PSNR; the app given ``-m <model>``), ``convert`` with a
+     COLMAP that exits with 3 (it must exit with 3), and the native COLMAP
+     reader (``data/native.py``, its library built here) on a model of a
+     Mip-NeRF 360 capture's size (200 images x 10,000 2D points, 200,000
+     points with 10-entry tracks) against the Python readers, field by
+     field, with both readers' seconds;
+ 19. viewer: the network viewer in-process over loopback, a client asking
      for a held-out view of train_cli's checkpoint at 512² and view 0 of
      the full scene at 1600x1066 (every image equal to a direct render
      through K1, K5a and K2, within one level of the plain versions',
@@ -130,7 +148,7 @@ line per phase:
      the train CLI with the viewer on and a client that holds training for
      three requests and lets it go on (equal images while held, a later
      one after; the renders' launches apart from the steps');
- 19. depth_train: the depth trainer (``depth/trainer.py``, no kernel of the
+ 20. depth_train: the depth trainer (``depth/trainer.py``, no kernel of the
      table): the repo's depth configuration at 128², batch 4, 3 steps from
      seeded weights on raycast views, on the card against the CPU and with
      the plain attention form against the fused one (losses within 1e-4
@@ -142,7 +160,7 @@ line per phase:
      memory, the losses (finite; the last 20 steps' mean at most half the
      first 20's), held-out a1/abs_rel/rmse, and a checkpoint written and
      reloaded into a model of other weights predicting the same depth;
- 20. kernels: one object per kernel (the line before the card's line).
+ 21. kernels: one object per kernel (the line before the card's line).
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -178,8 +196,8 @@ runs only the named ones of multi_rank, multi_cli and depth_dp.
 
 With ``--phases NAME ...`` it builds the kernels and runs phase device,
 the named ones of train_cli, mesh_train, thesis, metrics, depth,
-depth_chain, viewer and depth_train (train_cli first when another of them
-uses its scene: all but depth_train do), without the kernels line.
+depth_chain, chain, viewer and depth_train (train_cli first when another
+of them uses its scene: all but depth_train do), without the kernels line.
 
 Any failure raises: the script exits non-zero, and it does so before
 printing a result when there is no CUDA card or when the port is not
@@ -231,6 +249,8 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# The port's entry points are PORT + name (python -m).
+PORT = "priordepth_gaussiansplatting_torch."
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and f32 (non-tensor) rate.
 CARD_BYTES_PER_S = 3.35e12
 CARD_F32_OPS_PER_S = 67e12
@@ -313,8 +333,13 @@ VITL = dict(embed_dim=1024, depth=24, num_heads=16, patch_size=14,
             taps=(4, 11, 17), exact_gelu=True, use_cls_token=True,
             layerscale=True, final_norm=True)
 VITL_SIDE = 518
-# depth_chain: the train CLI's iterations on the chain's own priors.
+# depth_chain and chain: the train CLI's iterations on the chain's own
+# priors.
 CHAIN_ITERS = 300
+# chain: the native reader's model at a Mip-NeRF 360 capture's size: images
+# x 2D points each, points x track length (each way 2M observations).
+NATIVE_IMAGES, NATIVE_P2D = 200, 10_000
+NATIVE_POINTS, NATIVE_TRACK = 200_000, 10
 # viewer: requests per camera in-process, the train CLI run's iterations
 # with a client that holds training for VIEWER_HELD requests.
 VIEWER_REQUESTS, VIEWER_CLI_ITERS, VIEWER_HELD = 10, 100, 3
@@ -341,7 +366,7 @@ DP_SIDE, DP_VIEWS, DP_BATCH, DP_STEPS, DP_SCHEDULE = 256, 16, 8, 20, 400
 # The phases that --phases may select, in their order; all but
 # depth_train use train_cli's scene.
 CLI_PHASES = ("train_cli", "mesh_train", "thesis", "metrics", "depth",
-              "depth_chain", "viewer", "depth_train")
+              "depth_chain", "chain", "viewer", "depth_train")
 # ... and with --ranks N.
 RANK_PHASES = ("multi_rank", "multi_cli", "depth_dp")
 GRAD_ATOL, GRAD_RTOL = 3e-4, 2e-3
@@ -410,18 +435,6 @@ def run_readings(events, lo: int, hi: int):
     return (tag("test/loss_viewpoint - psnr"),
             tag("train/loss_viewpoint - psnr"),
             (hi - lo) / (clock[hi] - clock[lo]))
-
-
-def synthetic_tool():
-    """``tools/make_synthetic_scene.py`` as a module (its ``camera_pose``
-    and ``render_view`` import nothing of the JAX package)."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "make_synthetic_scene",
-        os.path.join(REPO, "tools", "make_synthetic_scene.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def random_vgg16_npz(path: str, seed: int = 0) -> None:
@@ -1943,7 +1956,7 @@ class Smoke:
         with tempfile.TemporaryDirectory() as tmp:
             scene = os.path.join(tmp, "scene")
             model = os.path.join(tmp, "model")
-            self.run_cmd([sys.executable, "tools/make_synthetic_scene.py",
+            self.run_cmd([sys.executable, "-m", PORT + "make_synthetic_scene",
                           scene, "256", "4"], 600)
             g = self.testing.random_gaussians(3, 20_000, extent=0.8,
                                               scale_range=(0.01, 0.04))
@@ -2262,7 +2275,7 @@ class Smoke:
         size, views = CLI_SCENE
         scene = self.cli_scene = os.path.join(self.work, "cli_scene")
         t0 = time.perf_counter()
-        self.run_cmd([sys.executable, "tools/make_synthetic_scene.py",
+        self.run_cmd([sys.executable, "-m", PORT + "make_synthetic_scene",
                       scene, str(size), str(views)], 600)
         scene_s = time.perf_counter() - t0
         # The model stays for phase metrics.
@@ -2606,7 +2619,7 @@ class Smoke:
         size, views = CLI_SCENE
         scene = self.cli_scene
         t0 = time.perf_counter()
-        self.testing.write_depth_priors(scene, size, views, synthetic_tool())
+        self.testing.write_depth_priors(scene, size, views)
         priors_s = time.perf_counter() - t0
         with tempfile.TemporaryDirectory() as tmp:
             model = os.path.join(tmp, "model")
@@ -2971,30 +2984,14 @@ class Smoke:
                     card_vs_cpu_rel=errs, cpu_s=cpu_s, import_s=import_s)
 
     def observe_points(self, scene: str) -> list:
-        """Give the scene's ``images.bin`` 2D observations: each sparse point
-        projected into every view whose image it falls in, in front of the
-        camera (occlusion not tested, as the e2e test's scene)."""
+        """Give the scene's ``images.bin`` 2D observations
+        (``utils/standins.py::observed_model``); their counts per view."""
         from priordepth_gaussiansplatting_torch.data import colmap as cm
+        from priordepth_gaussiansplatting_torch.utils import standins
         sparse = os.path.join(scene, "sparse", "0")
-        cameras, images, points = cm.read_model(sparse)
-        ids = np.array(sorted(points))
-        xyz = np.stack([points[i].xyz for i in ids])
-        counts, out = [], {}
-        for key, im in images.items():
-            cam = cameras[im.camera_id]
-            fx, fy, cx, cy = cam.params[:4]
-            pc = xyz @ cm.qvec2rotmat(im.qvec).T + im.tvec
-            front = pc[:, 2] > 1e-6
-            z = np.where(front, pc[:, 2], 1.0)
-            uv = np.stack([fx * pc[:, 0] / z + cx, fy * pc[:, 1] / z + cy], 1)
-            keep = (front & (uv[:, 0] >= 0) & (uv[:, 0] < cam.width)
-                    & (uv[:, 1] >= 0) & (uv[:, 1] < cam.height))
-            out[key] = cm.ColmapImage(im.id, im.qvec, im.tvec, im.camera_id,
-                                      im.name, uv[keep],
-                                      ids[keep].astype(np.int64))
-            counts.append(int(keep.sum()))
-        cm.write_images_binary(out, os.path.join(sparse, "images.bin"))
-        return counts
+        _, images, _ = standins.observed_model(sparse)
+        cm.write_images_binary(images, os.path.join(sparse, "images.bin"))
+        return [len(im.point3D_ids) for im in images.values()]
 
     def phase_depth_chain(self):
         """The thesis's prior chain on train_cli's scene: 2D observations
@@ -3050,6 +3047,209 @@ class Smoke:
              final_loss=run["final_loss"], test_psnr=psnr,
              step_launches=run["step_launches"], skipped=run["skipped"],
              seconds=time.perf_counter() - t_phase)
+
+    def phase_chain(self):
+        """The chain CLIs on train_cli's scene: ``train_video`` ->
+        ``train_image`` -> ``convert`` -> ``run.py`` -> ``make_depth_scale``
+        -> the train CLI on the card, through stand-ins for ffmpeg, COLMAP,
+        DepthAnythingV2 and the SIBR app (``utils/standins.py``), then
+        ``SIBR_viewer --with_metrics``, ``convert`` with a failing COLMAP,
+        and the native COLMAP reader at a real capture's size."""
+        from priordepth_gaussiansplatting_torch.utils import standins
+        t_phase = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            st = standins.write_chain_standins(
+                os.path.join(tmp, "bin"), self.cli_scene,
+                depth_seed=DEPTH_SEED)
+            video, work, model = (os.path.join(tmp, name)
+                                  for name in ("video.mp4", "work", "model"))
+            with open(video, "wb") as f:
+                f.write(b"a stand-in ffmpeg reads no video")
+            env = {"PATH": st["path"] + os.pathsep + os.environ["PATH"]}
+            # train_cli's flags; "-m" not first, where the chain CLIs'
+            # argparse would take the string for their own -m.
+            train_args = " ".join([
+                "--eval", "--disable_viewer", "--noise_injection_iter", "0",
+                "--floating_prune_iter", "0", "--init_capacity",
+                str(CLI_CAPACITY), "--pin_pair_capacity", str(CLI_PAIRS),
+                "--iterations", str(CHAIN_ITERS), "--test_iterations",
+                str(CHAIN_ITERS), "--save_iterations", str(CHAIN_ITERS),
+                "-m", model])
+            t0 = time.perf_counter()
+            with card_memory_peak() as mem:
+                out = self.run_cmd(
+                    [sys.executable, "-m", PORT + "train_video", "-v", video,
+                     "-w", work, "--fps", "2", "--depth_anything_dir",
+                     st["depth_anything_dir"], "--train_args", train_args],
+                    900, env=env)
+            chain_s = time.perf_counter() - t0
+            run = self.chain_run(out, st, work, model)
+            t0 = time.perf_counter()
+            self.run_cmd([sys.executable, "-m", PORT + "SIBR_viewer", "-m",
+                          model, "--with_metrics", "--viewer_path",
+                          st["viewer_dir"]], 900, env=env)
+            sibr_s = time.perf_counter() - t0
+            method = f"ours_{CHAIN_ITERS}"
+            for split in ("train", "test"):
+                rdir = os.path.join(model, split, method, "renders")
+                assert len(os.listdir(rdir)) > 0, rdir
+            with open(os.path.join(model, "results.json")) as f:
+                scores = json.load(f)[method]
+            assert np.isfinite(scores["PSNR"]), scores
+            app = standins.read_log(st["log"])[-1]
+            assert app["tool"] == "viewer/SIBR_gaussianViewer_app", app
+            assert app["argv"] == ["-m", model], app
+            failing = subprocess.run(
+                [sys.executable, "-m", PORT + "convert", "-s",
+                 os.path.join(tmp, "failing"), "--colmap_executable",
+                 st["colmap_fail"]], cwd=REPO, capture_output=True,
+                text=True, env=dict(os.environ, PYTHONPATH=REPO),
+                timeout=300)
+            assert failing.returncode == 3, (failing.returncode,
+                                             failing.stdout, failing.stderr)
+            native = self.native_reader(tmp)
+        emit("chain", ok=True, standins=list(standins.STANDINS),
+             standins_note="ffmpeg, COLMAP, DepthAnythingV2 and SIBR are "
+                           "stand-ins that act out train_cli's scene",
+             scene=dict(size=CLI_SCENE[0], views=CLI_SCENE[1]),
+             chain_s=chain_s, card_memory_used_peak_mib=mem["peak_mib"],
+             **run, sibr_viewer_s=sibr_s, metrics=scores,
+             failing_colmap_convert_rc=failing.returncode, native=native,
+             seconds=time.perf_counter() - t_phase, nvidia_smi=self.smi)
+
+    def chain_run(self, out: str, st: dict, work: str, model: str) -> dict:
+        """What ``train_video``'s run shows: the reference scripts'
+        commands in order, the stand-ins' work, ``sparse/0``, the fitted
+        ``depth_params.json``, and the train CLI's 300 iterations with
+        ``-d depths`` on the card through each step kernel."""
+        from priordepth_gaussiansplatting_torch.utils import standins
+        cmds = [ln[2:] for ln in out.splitlines() if ln.startswith("$ ")]
+        heads = [c.split(" --")[0].split(" -s ")[0].split(" -i ")[0]
+                 for c in cmds]
+        colmap = os.path.join(st["path"], "colmap")
+        assert heads == [
+            os.path.join(st["path"], "ffmpeg"),
+            f"{sys.executable} -m {PORT}train_image",
+            f"{sys.executable} -m {PORT}convert",
+            f"{colmap} feature_extractor", f"{colmap} exhaustive_matcher",
+            f"{colmap} mapper", f"{colmap} image_undistorter",
+            f"{sys.executable} {st['depth_anything_dir']}/run.py",
+            f"{sys.executable} -m {PORT}train"], heads
+        assert " -d depths " in cmds[-1], cmds[-1]
+        log = standins.read_log(st["log"])
+        assert [r["tool"] for r in log] == ["ffmpeg"] + ["colmap"] * 4 + [
+            "depth_anything/run.py"], log
+        assert all(r["code"] == 0 for r in log), log
+        depth = log[-1]
+        assert depth["device"].startswith(self.dev.type), depth
+        assert depth["written"] == CLI_SCENE[1], depth
+        observed = log[3]["observations"]
+        assert min(observed) > 10, observed
+        sparse = os.path.join(work, "sparse", "0")
+        files = sorted(os.listdir(sparse))
+        assert {"cameras.bin", "images.bin", "points3D.bin"} <= set(files)
+        with open(os.path.join(sparse, "depth_params.json")) as f:
+            params = json.load(f)
+        assert len(params) == CLI_SCENE[1], params
+        assert all(np.isfinite([p["scale"], p["offset"]]).all()
+                   for p in params.values()), params
+        fitted = sorted(p["scale"] for p in params.values() if p["scale"])
+        assert fitted, params
+        last = out.strip().splitlines()[-1]
+        assert last.startswith("Training complete: "), last
+        res = json.loads(last[len("Training complete: "):])
+        assert res["iterations_run"] == CHAIN_ITERS and res["skipped"] == 0
+        assert res["step_launches"] == dict.fromkeys(STEP, CHAIN_ITERS), res
+        assert np.isfinite(res["final_loss"]), res
+        ev = read_events(model)
+        losses = [e["value"] for e in ev
+                  if e.get("tag") == "train_loss_patches/total_loss"]
+        assert losses and np.isfinite(losses).all(), losses
+        psnr, train_psnr, steady = run_readings(ev, 50, CHAIN_ITERS - 50)
+        assert np.isfinite(psnr[CHAIN_ITERS]), psnr
+        return dict(
+            commands=[h.replace(sys.executable, "python") for h in heads],
+            standin_seconds={f"{r['tool']} {r['argv'][0]}"
+                             if r["tool"] == "colmap" else r["tool"]:
+                             r["seconds"] for r in log},
+            depth_peak_mem_gib=depth.get("peak_mem_gib"),
+            observations_per_view=[min(observed), max(observed)],
+            sparse0=files, fitted=len(fitted),
+            scale_median=fitted[len(fitted) // 2],
+            iterations=CHAIN_ITERS, wall_s=res["wall_s"],
+            it_per_s_between_evals=steady, final_loss=res["final_loss"],
+            test_psnr=psnr, train_psnr=train_psnr,
+            step_launches=res["step_launches"], skipped=res["skipped"])
+
+    def native_reader(self, tmp: str) -> dict:
+        """A sparse model of a Mip-NeRF 360 capture's size written with the
+        port's writers (observation o: image o % 200, point o // 10), read
+        by the native and the Python readers, equal field by field; the
+        library is loaded directly, so that a failed build fails here."""
+        from priordepth_gaussiansplatting_torch.data import colmap as cm
+        from priordepth_gaussiansplatting_torch.data import native
+        rng = np.random.default_rng(0)
+        t0 = time.perf_counter()
+        native.load_library()
+        load_s = time.perf_counter() - t0
+        n_obs = NATIVE_IMAGES * NATIVE_P2D
+        assert n_obs == NATIVE_POINTS * NATIVE_TRACK
+        obs = np.arange(n_obs).reshape(NATIVE_P2D, NATIVE_IMAGES)
+        xys = rng.random((NATIVE_IMAGES, NATIVE_P2D, 2)) * 1000
+        images = {}
+        for i in range(NATIVE_IMAGES):
+            q = rng.standard_normal(4)
+            images[i + 1] = cm.ColmapImage(
+                i + 1, q / np.linalg.norm(q), rng.standard_normal(3), 1,
+                f"frame_{i:05d}.jpg", xys[i],
+                (obs[:, i] // NATIVE_TRACK + 1).astype(np.int64))
+        track = np.arange(n_obs).reshape(NATIVE_POINTS, NATIVE_TRACK)
+        xyz = rng.standard_normal((NATIVE_POINTS, 3))
+        rgb = rng.integers(0, 256, (NATIVE_POINTS, 3))
+        err = rng.random(NATIVE_POINTS)
+        points = {j + 1: cm.ColmapPoint3D(
+            j + 1, xyz[j], rgb[j], float(err[j]),
+            (track[j] % NATIVE_IMAGES + 1).astype(np.int32),
+            (track[j] // NATIVE_IMAGES).astype(np.int32))
+            for j in range(NATIVE_POINTS)}
+        ipath = os.path.join(tmp, "images.bin")
+        ppath = os.path.join(tmp, "points3D.bin")
+        t0 = time.perf_counter()
+        cm.write_images_binary(images, ipath)
+        cm.write_points3D_binary(points, ppath)
+        write_s = time.perf_counter() - t0
+        seconds, read = {}, {}
+        for name, fns in (("native", (native.read_images_binary,
+                                      native.read_points3D_binary)),
+                          ("python", (cm.read_images_binary,
+                                      cm.read_points3D_binary))):
+            t0 = time.perf_counter()
+            read[name] = (fns[0](ipath), fns[1](ppath))
+            seconds[name] = time.perf_counter() - t0
+        (ni, np_), (pi, pp) = read["native"], read["python"]
+        assert list(ni) == list(pi) == list(images)
+        for k, want in pi.items():
+            got = ni[k]
+            assert (got.id, got.camera_id, got.name) == (
+                want.id, want.camera_id, want.name)
+            for field in ("qvec", "tvec", "xys", "point3D_ids"):
+                assert np.array_equal(getattr(got, field),
+                                      getattr(want, field)), (k, field)
+        assert list(np_) == list(pp) == list(points)
+        for field in ("xyz", "rgb", "image_ids", "point2D_idxs"):
+            assert np.array_equal(
+                np.stack([getattr(p, field) for p in np_.values()]),
+                np.stack([getattr(p, field) for p in pp.values()])), field
+        assert [p.error for p in np_.values()] == [p.error
+                                                  for p in pp.values()]
+        return dict(images=NATIVE_IMAGES, points2d_per_image=NATIVE_P2D,
+                    points=NATIVE_POINTS, track=NATIVE_TRACK,
+                    observations=n_obs,
+                    file_mib=(os.path.getsize(ipath)
+                              + os.path.getsize(ppath)) / 2 ** 20,
+                    library=str(native.library_path().name),
+                    load_s=load_s, write_s=write_s, read_s=seconds,
+                    speedup=seconds["python"] / seconds["native"])
 
     def drive_viewer(self, gui, state, bg, message, n: int):
         """`n` requests of one camera from a client thread, served by one
@@ -3316,6 +3516,25 @@ class Smoke:
         print(json.dumps({"kernels": rows}), flush=True)
 
 
+@contextlib.contextmanager
+def card_memory_peak():
+    """The card's memory in use (every process's, the smoke's own cache
+    included), sampled by nvidia-smi every 200 ms while the block runs:
+    yields a dict that holds ``peak_mib`` afterwards."""
+    res = {}
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits", "-lms", "200"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield res
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+        res["peak_mib"] = max((int(v) for v in out.split()
+                               if v.strip().isdigit()), default=None)
+
+
 def viewer_run(run: dict, session: dict, port: int) -> dict:
     """What a train CLI run with the viewer and `viewer_session`'s client
     shows: every request rendered (through K1, K5a and K2, once each), none
@@ -3415,6 +3634,7 @@ def main(argv=None) -> int:
         smoke.phase_metrics()
         smoke.phase_depth()
         smoke.phase_depth_chain()
+        smoke.phase_chain()
         smoke.phase_viewer()
         smoke.phase_depth_train()
     smoke.kernels_line()
@@ -3618,9 +3838,9 @@ def multi_cli(ranks: int) -> None:
     out = {}
     with tempfile.TemporaryDirectory() as work:
         scene = os.path.join(work, "scene")
-        smoke.run_cmd([sys.executable, "tools/make_synthetic_scene.py",
+        smoke.run_cmd([sys.executable, "-m", PORT + "make_synthetic_scene",
                        scene, str(size), str(views)], 600)
-        smoke.testing.write_depth_priors(scene, size, views, synthetic_tool())
+        smoke.testing.write_depth_priors(scene, size, views)
         from priordepth_gaussiansplatting_torch.data.dataset import Scene
         message = smoke.testing.camera_message(Scene(
             scene, eval_split=True, shuffle=False,

@@ -25,6 +25,10 @@ def fov_to_focal(fov: float, pixels: float) -> float:
     return pixels / (2.0 * math.tan(fov / 2.0))
 
 
+def focal_to_fov(focal: float, pixels: float) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
+
+
 def world_to_view(R: np.ndarray, t: np.ndarray,
                   translate: np.ndarray = None, scale: float = 1.0) -> np.ndarray:
     """4x4 world->camera matrix from COLMAP-convention (R, t): R is the

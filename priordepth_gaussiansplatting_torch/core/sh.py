@@ -110,3 +110,8 @@ def sh_to_color(degree: int, sh_coeffs: torch.Tensor,
 def rgb_to_sh(rgb):
     """Inverse of the DC term's colour mapping (works on arrays too)."""
     return (rgb - 0.5) / C0
+
+
+def sh_to_rgb(sh):
+    """The DC term's colour mapping (works on arrays too)."""
+    return sh * C0 + 0.5

@@ -46,6 +46,23 @@ def scaling_rotation_to_cov3d(scale: torch.Tensor,
     return torch.stack([row0, row1, row2], dim=-2)
 
 
+def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) symmetric -> packed (..., 6): xx, xy, xz, yy, yz, zz
+    (the reference's ``strip_lowerdiag`` layout)."""
+    return torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+                        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]],
+                       dim=-1)
+
+
+def unpack_symmetric(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`strip_symmetric`."""
+    xx, xy, xz, yy, yz, zz = (packed[..., i] for i in range(6))
+    row0 = torch.stack([xx, xy, xz], dim=-1)
+    row1 = torch.stack([xy, yy, yz], dim=-1)
+    row2 = torch.stack([xz, yz, zz], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
 def inverse_sigmoid(x):
     """Logit: opacity is stored in pre-activation space."""
     return torch.log(x / (1.0 - x))

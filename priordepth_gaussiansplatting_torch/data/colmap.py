@@ -1,5 +1,6 @@
 """COLMAP sparse-model readers/writers (binary + text), pure numpy; a copy
-of the JAX package's ``data/colmap.py``.
+of the JAX package's ``data/colmap.py`` (``read_model`` prefers the native
+readers of ``data/native.py``, as JAX's does).
 
 Format-compatible replacement for the reference's `scene/colmap_loader.py` and
 `utils/read_write_model.py`: cameras.bin/txt, images.bin/txt,
@@ -283,9 +284,19 @@ def write_points3D_text(points: Dict[int, ColmapPoint3D], path) -> None:
             f.write(f"{pt.id} {xyz} {rgb} {pt.error} {track}\n")
 
 
-def read_model(sparse_dir: str):
-    """Auto-detect bin/txt and read (cameras, images, points3D) with the
-    pure-Python readers (the native C++ reader is not part of the port)."""
+def read_model(sparse_dir: str, prefer_native: bool = True):
+    """Auto-detect bin/txt and read (cameras, images, points3D).
+
+    With `prefer_native`, binary images and points are parsed by the native
+    C++ runtime when it builds and loads (``data/native.py``), with these
+    Python readers as the fallback and as the reference in tests."""
+    images_bin_fn = read_images_binary
+    points_bin_fn = read_points3D_binary
+    if prefer_native:
+        from . import native  # noqa: PLC0415
+        if native.have_native():
+            images_bin_fn = native.read_images_binary
+            points_bin_fn = native.read_points3D_binary
 
     def pick(stem, bin_fn, txt_fn):
         b = os.path.join(sparse_dir, stem + ".bin")
@@ -297,6 +308,6 @@ def read_model(sparse_dir: str):
         raise FileNotFoundError(f"{stem}.bin/.txt not found in {sparse_dir}")
 
     cameras = pick("cameras", read_cameras_binary, read_cameras_text)
-    images = pick("images", read_images_binary, read_images_text)
-    points = pick("points3D", read_points3D_binary, read_points3D_text)
+    images = pick("images", images_bin_fn, read_images_text)
+    points = pick("points3D", points_bin_fn, read_points3D_text)
     return cameras, images, points

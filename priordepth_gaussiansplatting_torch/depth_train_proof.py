@@ -2,7 +2,7 @@
 ``tools/depth_train_proof.py``, with its arguments and JSON fields).
 
 Raycasts an RGB-D set from the synthetic proof scene
-(``tools/make_synthetic_scene.py``, true metric depth per pixel), trains
+(``make_synthetic_scene.py``, true metric depth per pixel), trains
 ``DepthModel`` with the SILog+GradL1 recipe (``depth/trainer.py``, AdamW
 with OneCycle) on the card, and scores the held-out views with the
 reference's depth metrics (a1/abs_rel/rmse, ``zoedepth/utils/misc.py:
@@ -25,7 +25,6 @@ writes.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import sys
@@ -39,7 +38,6 @@ import torch.distributed as dist
 from .device import resolve_device
 from .parallel import mesh as pmesh
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_TRAIN, N_TEST = 40, 8
 MAX_DEPTH = 8.0
 SEED = 0  # of the torch.Generator that draws the model's weights
@@ -47,14 +45,10 @@ GROUP_ENV = ("MASTER_ADDR", "RANK", "WORLD_SIZE")
 
 
 def scene_tool():
-    """``tools/make_synthetic_scene.py`` as a module, loaded by path (it
-    imports numpy only)."""
-    path = os.path.join(REPO, "tools", "make_synthetic_scene.py")
-    spec = importlib.util.spec_from_file_location("make_synthetic_scene",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    """The port's synthetic-scene generator (its ``camera_pose`` and
+    ``render_view``)."""
+    from . import make_synthetic_scene
+    return make_synthetic_scene
 
 
 def make_rgbd(n_views: int, size: int):

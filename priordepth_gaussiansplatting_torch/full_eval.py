@@ -20,24 +20,13 @@ import sys
 import time
 from argparse import ArgumentParser
 
+from .utils.shell import entry, run
+
 mipnerf360_outdoor_scenes = ["bicycle", "flowers", "garden", "stump",
                              "treehill"]
 mipnerf360_indoor_scenes = ["room", "counter", "kitchen", "bonsai"]
 tanks_and_temples_scenes = ["truck", "train"]
 deep_blending_scenes = ["drjohnson", "playroom"]
-PACKAGE = "priordepth_gaussiansplatting_torch"
-
-
-def run(cmd: str) -> None:
-    print(f"$ {cmd}", flush=True)
-    rc = os.system(cmd)
-    if rc != 0:
-        raise RuntimeError(f"command failed ({rc}): {cmd}")
-
-
-def entry(name: str) -> str:
-    """The command that starts the port's entry point `name`."""
-    return f"{sys.executable} -m {PACKAGE}.{name}"
 
 
 def main(argv=None):

@@ -171,15 +171,19 @@ def tile_window_cases(grid_y: int = 100) -> dict:
             for name, (w, h, p_cap) in cases.items()}
 
 
-def write_depth_priors(scene: str, size: int, n_views: int, tool) -> list:
-    """Inverse-depth priors for a scene of ``tools/make_synthetic_scene.py``
-    (`tool`, that module, loaded by path): each view's camera-space inverse
-    depth from the tool's own ``camera_pose`` and ``render_view`` (which
+def write_depth_priors(scene: str, size: int, n_views: int,
+                       tool=None) -> list:
+    """Inverse-depth priors for a scene of the port's
+    ``make_synthetic_scene`` (`tool`, that module unless the caller hands
+    in a copy): each view's camera-space inverse depth from the tool's own
+    ``camera_pose`` and ``render_view`` (which
     returns the distance along the unit ray: z = distance / |(x, y, 1)|),
     written as 16-bit PNGs ``<scene>/depths/r_<i>.png`` (value x 65,536,
     clipped; sky 0), which the loader reads with ``depths="depths"``.
     Returns the inverse depths as f32 arrays."""
     from PIL import Image  # noqa: PLC0415
+    if tool is None:
+        from .. import make_synthetic_scene as tool  # noqa: PLC0415
     focal = 0.82 * size
     ys, xs = np.mgrid[0:size, 0:size].astype(np.float64)
     ray = np.sqrt(((xs - size / 2.0) / focal) ** 2
@@ -306,3 +310,4 @@ def connect_viewer(port: int, deadline: float = 60.0,
             if time.monotonic() - t0 > deadline:
                 raise
             time.sleep(0.05)
+

@@ -2,6 +2,7 @@
 its entry points run on the card or raise unless the caller asks for the
 CPU."""
 
+import ast
 import os
 import pkgutil
 import re
@@ -40,6 +41,67 @@ def test_importing_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+CHAIN_MODULES = ("convert", "train_image", "train_video", "SIBR_viewer",
+                 "make_synthetic_scene", "data.native", "utils.shell",
+                 "utils.standins")
+
+
+def test_the_chain_modules_are_among_those_imported():
+    """test_importing_port_loads_no_jax imports every port module, the
+    chain CLIs, the native reader and the scene generator among them."""
+    assert {f"priordepth_gaussiansplatting_torch.{m}"
+            for m in CHAIN_MODULES} <= set(port_modules())
+
+
+# What the port and chip_smoke.py must not run or load: the repo's scene
+# tool and the root scripts of the JAX package, named as files.
+ROOT_SCRIPTS = ("train", "render", "metrics", "full_eval", "convert",
+                "train_image", "train_video", "SIBR_viewer", "bench")
+SCRIPT_PATH = re.compile(
+    r"(?:^|[\s/\"'])(?:(?:tools/)?make_synthetic_scene|"
+    + "|".join(ROOT_SCRIPTS) + r")\.py(?:$|[\s\"'])")
+
+
+def script_paths(src: str) -> list:
+    """(line, text) of each string in `src`, docstrings aside, that names
+    the scene tool or a root script as a file: a path or a command line
+    (f-strings' literal parts included)."""
+    tree = ast.parse(src)
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [(node.lineno, node.value) for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs and SCRIPT_PATH.search(node.value)]
+
+
+@pytest.mark.parametrize("snippet", [
+    'run_cmd([sys.executable, "tools/make_synthetic_scene.py", s, "8"])',
+    'os.path.join(REPO, "tools", "make_synthetic_scene.py")',
+    'os.system(f"{sys.executable} convert.py -s {src}")',
+    'os.system(f"{py} train.py -s {src}{flags}")',
+    'subprocess.run([sys.executable, "SIBR_viewer.py", "-m", m])',
+    'runpy.run_path(os.path.join(REPO, "bench.py"))',
+])
+def test_the_script_scan_sees_a_script_run_or_loaded(snippet):
+    assert script_paths(snippet), snippet
+
+
+def test_no_port_source_runs_or_loads_a_jax_script():
+    """Neither chip_smoke.py nor a port module starts or loads the repo's
+    ``tools/make_synthetic_scene.py`` or a root JAX script: the port runs
+    its own modules (``python -m priordepth_gaussiansplatting_torch.*``)."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for d, _, files in os.walk(PORT_DIR):
+        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 20
+    for path in paths:
+        with open(path) as f:
+            assert not script_paths(f.read()), path
 
 
 def test_sources_import_no_jax():
