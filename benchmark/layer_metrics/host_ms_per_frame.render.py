@@ -1,0 +1,8 @@
+"""Host time of dispatching a frame: the main thread's profiled self time,
+less the calls that wait for the device, over the span's frames."""
+
+
+def read(r):
+    if r.span is None or not r.units:
+        return None
+    return 1e3 * r.span.host_s / r.units
