@@ -1,0 +1,8 @@
+"""Device ms a frame of the program's ``render.composite`` span (K2): the
+interval between its boundary events, over the traced span's frames."""
+
+from benchmark import spans
+
+
+def read(r):
+    return spans.device_ms_per_unit(r, "render.composite")

@@ -65,11 +65,7 @@ line per phase:
      window and under K1's; K7's time queued and unqueued;
  10. probe: ``python -m priordepth_gaussiansplatting_torch.perf_probe
      1000000 1600 1066`` (stage times; K7 launched once per bin+sort call);
- 11. bench: ``python -m priordepth_gaussiansplatting_torch.bench``, the
-     counterpart of the root ``bench.py`` (its four-key last line, no
-     overflow, each step's kernels launched once per step), beside the
-     stage probe's fwd+bwd rays/s of phase probe;
- 12. train_cli: ``python -m priordepth_gaussiansplatting_torch.train`` on a
+ 11. train_cli: ``python -m priordepth_gaussiansplatting_torch.train`` on a
      512x512, 32-view raycast scene for 1,000 iterations with a store of
      2^18 rows, whose default pair capacity (2^20) holds every pair of an
      evaluation view, and the steps' pair capacity pinned there too (the
@@ -77,7 +73,7 @@ line per phase:
      over the run, none skipped, no evaluation view overflowing, held-out
      PSNR higher at 1,000 than at 500), a resume from its iteration-500
      checkpoint, and the render CLI on its snapshot;
- 13. mesh_train: ``train.trainer.Trainer(mesh=Mesh(1, 1))`` in a one-rank
+ 12. mesh_train: ``train.trainer.Trainer(mesh=Mesh(1, 1))`` in a one-rank
      NCCL group on train_cli's scene and flags for 1,000 iterations (none
      skipped, held-out PSNR higher at 1,000 than at 500, each step kernel
      once per iteration): its per-iteration losses equal (rel 1e-5) to
@@ -85,7 +81,7 @@ line per phase:
      to the first densify round that trainer's equal to the train_cli
      run's logged ones; a resume from its iteration-500 checkpoint for 20
      iterations, and its it/s beside train_cli's;
- 14. thesis: train_cli's scene with inverse-depth priors (16-bit PNGs under
+ 13. thesis: train_cli's scene with inverse-depth priors (16-bit PNGs under
      ``depths/``, from the scene generator's own ``camera_pose`` and
      ``render_view``) through the train CLI with ``-d depths`` for 1,000
      iterations, the noise injection at 700 (+6 active rows) and the
@@ -103,12 +99,12 @@ line per phase:
      right, so that about half the rows it judges go): the kernel
      render's mask against the plain render's, counted the same way, and
      the time of render + ``prune_view`` by CUDA events;
- 15. metrics: ``python -m priordepth_gaussiansplatting_torch.metrics`` on the
+ 14. metrics: ``python -m priordepth_gaussiansplatting_torch.metrics`` on the
      render CLI's output of train_cli (its held-out views at 1,000) with
      random VGG16 LPIPS weights written from a numpy seed, on the card
      against ``--device cpu`` (PSNR and SSIM within 1e-4, LPIPS rtol 1e-3),
      and its PSNR beside the trainer's report for the same views;
- 16. depth: the depth-prior inference path (``depth/``, no kernel of the
+ 15. depth: the depth-prior inference path (``depth/``, no kernel of the
      table) with the repo's configuration (embed 384, 6 blocks, 6 heads,
      patch 16, 16 bins) and weights drawn from a seed: the TTA priors of
      train_cli's 32 images (1,024² inputs, 4,096 patches, the positional
@@ -118,11 +114,11 @@ line per phase:
      CPU), and a ViT-L encoder (DepthAnythingV2-L's DINOv2 layout) imported
      from a random state dict written with torch.save, at 518² against the
      CPU, its ms and peak memory;
- 17. depth_chain: train_cli's scene with 2D observations of its sparse
+ 16. depth_chain: train_cli's scene with 2D observations of its sparse
      points, priors by that model on the card, ``make_depth_scale`` (a
      non-empty ``depth_params.json``), then the train CLI with ``-d
      depths`` for 300 iterations (finite losses, no skipped update);
- 18. chain: the chain CLIs on train_cli's scene, through executable
+ 17. chain: the chain CLIs on train_cli's scene, through executable
      stand-ins for ffmpeg, COLMAP, DepthAnythingV2's ``run.py`` and the
      SIBR app (``utils/standins.py``; none of the tools is installed):
      ``python -m priordepth_gaussiansplatting_torch.train_video`` (frames)
@@ -140,7 +136,7 @@ line per phase:
      Mip-NeRF 360 capture's size (200 images x 10,000 2D points, 200,000
      points with 10-entry tracks) against the Python readers, field by
      field, with both readers' seconds;
- 19. viewer: the network viewer in-process over loopback, a client asking
+ 18. viewer: the network viewer in-process over loopback, a client asking
      for a held-out view of train_cli's checkpoint at 512² and view 0 of
      the full scene at 1600x1066 (every image equal to a direct render
      through K1, K5a and K2, within one level of the plain versions',
@@ -148,7 +144,7 @@ line per phase:
      the train CLI with the viewer on and a client that holds training for
      three requests and lets it go on (equal images while held, a later
      one after; the renders' launches apart from the steps');
- 20. depth_train: the depth trainer (``depth/trainer.py``, no kernel of the
+ 19. depth_train: the depth trainer (``depth/trainer.py``, no kernel of the
      table): the repo's depth configuration at 128², batch 4, 3 steps from
      seeded weights on raycast views, on the card against the CPU and with
      the plain attention form against the fused one (losses within 1e-4
@@ -160,7 +156,7 @@ line per phase:
      memory, the losses (finite; the last 20 steps' mean at most half the
      first 20's), held-out a1/abs_rel/rmse, and a checkpoint written and
      reloaded into a model of other weights predicting the same depth;
- 21. kernels: one object per kernel (the line before the card's line).
+ 20. kernels: one object per kernel (the line before the card's line).
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -427,14 +423,14 @@ def bound(nbytes: float, ops: float):
 def run_readings(events, lo: int, hi: int):
     """A training run's held-out and train PSNR by iteration, and its it/s
     between iterations lo and hi, from its ``events.jsonl`` records:
-    ``iter_time`` is the time since the run's start when the metrics were
-    drained, every 50 iterations."""
+    ``iter_time`` is the ms per iteration of the drained block of 50
+    iterations that holds its step, logged every 10."""
     def tag(name):
         return {e["step"]: e["value"] for e in events if e.get("tag") == name}
-    clock = tag("iter_time")
+    ms = [v for it, v in tag("iter_time").items() if lo < it <= hi]
     return (tag("test/loss_viewpoint - psnr"),
             tag("train/loss_viewpoint - psnr"),
-            (hi - lo) / (clock[hi] - clock[lo]))
+            1e3 * len(ms) / sum(ms))
 
 
 def random_vgg16_npz(path: str, seed: int = 0) -> None:
@@ -570,7 +566,7 @@ class Smoke:
             valid_mask=state.active)
 
     def capacities(self, proj, w, h, headroom: float = 1.05):
-        """bench.py's rule: one probe binning, then the ladder rung above
+        """One probe binning, then the ladder rung above
         `headroom` times the rect and the kept pair counts."""
         rp = self.rasterize
         total = int(self.binning.depth_sorted_rects(proj, w, h)["total"])
@@ -2330,36 +2326,6 @@ class Smoke:
              render_cli_overflowed_views=rendered.count(
                  "overflowed the pair capacity"))
 
-    def phase_bench(self):
-        """The bench entry as a user runs it: ``bench.py``'s workload and
-        last line. Beside it the stage probe's fwd+bwd rays/s from phase
-        probe: the same gradient, but at the default pair capacity (4 per
-        Gaussian) where the bench sizes both capacities at 1.05x the
-        probed pairs, and timed by CUDA events, not the host clock."""
-        t0 = time.perf_counter()
-        out = self.run_cmd([sys.executable, "-m",
-                            "priordepth_gaussiansplatting_torch.bench"], 600)
-        seconds = time.perf_counter() - t0
-        lines = out.strip().splitlines()
-        line, res = json.loads(lines[-1]), json.loads(lines[-2])
-        assert list(line) == ["metric", "value", "unit", "vs_baseline"], line
-        assert line["metric"] == (f"rays/s fwd+bwd, {FULL_N // 1000}k "
-                                  f"gaussians @{FULL_W}x{FULL_H}, 1 chip")
-        assert line["unit"] == "rays/s" and line["value"] > 0, line
-        assert res["overflow"] == 0 and res["device"].startswith("cuda")
-        assert (res["n"], res["width"], res["height"]) == (FULL_N, FULL_W,
-                                                           FULL_H)
-        assert res["launches"] == dict.fromkeys(STEP, res["steps"]), res
-        probe = self.results["probe"]
-        emit("bench", ok=True, seconds=seconds, line=line,
-             rays_per_s=line["value"], ms_per_step=res["ms_per_step"],
-             chain_s=res["chain_s"], p_cap=res["p_cap"], v_cap=res["v_cap"],
-             num_rect=res["num_rect"], num_valid=res["num_valid"],
-             launches=res["launches"], nvidia_smi=res["nvidia_smi"],
-             probe=dict(rays_per_s_fwd_bwd=probe["rays_per_s_fwd_bwd"],
-                        pair_capacity=probe["pair_capacity"],
-                        pairs=probe["pairs"], timing="CUDA events"))
-
     def phase_mesh_train(self):
         """The trainer over a one-rank NCCL mesh on train_cli's scene and
         flags: CLI_ITERS iterations with their evaluations and a
@@ -3627,7 +3593,6 @@ def main(argv=None) -> int:
         smoke.phase_cli()
         smoke.phase_bin()
         smoke.phase_probe()
-        smoke.phase_bench()
         smoke.phase_train_cli()
         smoke.phase_mesh_train()
         smoke.phase_thesis()

@@ -421,14 +421,27 @@ def rasterize(proj: ProjectedGaussians, bg: torch.Tensor, width: int,
     """Binning then compositing; the oracle's contract (render includes the
     background). `pair_capacity` bounds the rect pair expansion,
     `valid_capacity` (default: the same) the pairs that survive the cull."""
-    n = proj.mean2d.shape[0]
     if pair_capacity is None:
-        pair_capacity = default_pair_capacity(n)
+        pair_capacity = default_pair_capacity(proj.mean2d.shape[0])
     table, aux = binning.bin_sorted_pairs(proj, width, height, pair_capacity,
                                           valid_capacity)
+    return assemble(composite_frame(table, aux, width, height), aux, bg,
+                    width, height)
+
+
+def composite_frame(table, aux: dict, width: int, height: int):
+    """K2 over every tile of a frame binned by ``bin_sorted_pairs`` (its
+    table and aux): the tiles' colour (3, T, PIX), inverse depth and final
+    T (T, PIX)."""
     grid_x, _ = binning.grid_shape(width, height)
-    color_t, invd_t, t_t, _ = composite(table, aux["tile_start"],
-                                        aux["tile_end"], grid_x)
+    return composite(table, aux["tile_start"], aux["tile_end"], grid_x)[:3]
+
+
+def assemble(tiles, aux: dict, bg: torch.Tensor, width: int, height: int):
+    """:func:`rasterize`'s result from :func:`composite_frame`'s tiles and
+    the binning's aux: the images cropped from the tile grid, the
+    background added."""
+    color_t, invd_t, t_t = tiles
     color = tiles_to_image(color_t, width, height)
     invd = tiles_to_image(invd_t[None], width, height)
     t_fin = tiles_to_image(t_t[None], width, height)

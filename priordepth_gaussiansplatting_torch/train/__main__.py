@@ -53,6 +53,7 @@ import torch.distributed as dist
 from ..data.dataset import Scene
 from ..device import resolve_device
 from ..parallel import mesh as pmesh
+from ..utils import tracing
 from ..utils.config import (ModelConfig, OptimizationConfig, PipelineConfig,
                             add_dataclass_args, extract_dataclass,
                             torch_device_name)
@@ -88,7 +89,8 @@ def parser() -> ArgumentParser:
     p.add_argument("--debug_from", type=int, default=-1,
                    help="turn anomaly detection on from this iteration")
     p.add_argument("--profile", action="store_true",
-                   help="write a torch.profiler trace to <model>/trace")
+                   help="write a torch.profiler trace, with the "
+                        "program's spans, to <model>/trace/trace.json")
     p.add_argument("--n_data", type=int, default=1,
                    help="camera data-parallel ranks (one camera each per "
                         "step)")
@@ -245,9 +247,23 @@ def train(args, device: torch.device, mesh=None) -> dict:
         if args.profile:
             trace_dir = os.path.join(args.model_path, "trace")
             os.makedirs(trace_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            path = os.path.join(trace_dir, "trace.json")
+            prof.export_chrome_trace(path)
+            add_program_spans(path)
         print(f"\nTraining complete: {json.dumps(result)}", flush=True)
     return result
+
+
+def add_program_spans(path: str) -> None:
+    """Add the program's spans (``utils/tracing.py``) to the profiler's
+    chrome trace at `path`, on the trace's own time base: a host and a
+    device track beside the profiler's."""
+    with open(path) as f:
+        trace = json.load(f)
+    trace["traceEvents"] += tracing.chrome_events(
+        int(trace.get("baseTimeNanoseconds", 0)))
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 def open_viewer(args, device: torch.device, mesh=None):

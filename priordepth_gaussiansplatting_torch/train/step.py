@@ -14,6 +14,12 @@ and ``torch.autograd.grad`` hands back the gradients without touching
 ``.grad``. A step whose frame overflowed its pair capacity or whose loss is
 not finite changes nothing but reports ``skipped``; that guard is a
 ``torch.where`` on the card, so the step never waits for the host.
+
+Under a profiler (``utils/tracing.py``) a step is the span ``step`` over
+``render`` (``ops/render.py``'s stages), ``step.loss``, ``step.backward``
+(``torch.autograd.grad``, on the calling thread), ``step.adam`` and
+``step.stats`` (the densification statistics and the skip guards); an
+evaluation render is ``eval`` over ``render`` and ``eval.score``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from ..models import densify as densify_ops
 from ..models.gaussians import PARAM_NAMES, GaussianParams, GaussianState
 from ..ops import losses
 from ..ops.render import render
+from ..utils import tracing
 from ..utils.config import OptimizationConfig, PipelineConfig
 from . import optim
 
@@ -93,6 +100,10 @@ def make_train_step(opt_cfg: OptimizationConfig, pipe_cfg: PipelineConfig,
                    camera: Camera, step: int,
                    generator: Optional[torch.Generator],
                    bg_color: torch.Tensor):
+        with tracing.span("step"):
+            return _step(state, opt_state, camera, step, generator, bg_color)
+
+    def _step(state, opt_state, camera, step, generator, bg_color):
         dev = state.params.xyz.device
         if opt_cfg.random_background:
             bg = torch.rand(3, generator=generator, device=dev)
@@ -110,54 +121,61 @@ def make_train_step(opt_cfg: OptimizationConfig, pipe_cfg: PipelineConfig,
                          backend=pipe_cfg.backend,
                          pair_capacity=pair_capacity,
                          valid_capacity=valid_capacity)
-            image = out["render"]
-            if camera.alpha_mask is not None:
-                image = image * camera.alpha_mask[None]
-            ll1 = losses.l1_loss(image, camera.image)
-            ssim_v = losses.ssim(image, camera.image)
-            loss = ((1.0 - opt_cfg.lambda_dssim) * ll1
-                    + opt_cfg.lambda_dssim * (1.0 - ssim_v))
-            dloss = torch.zeros((), device=dev)
-            if opt_cfg.depth_feedback and camera.invdepth is not None:
-                mask = (camera.depth_mask if camera.depth_mask is not None
-                        else torch.ones_like(camera.invdepth))
-                dloss = depth_l1_weight(step, opt_cfg) * losses.depth_l1_loss(
-                    out["invdepth"][0], camera.invdepth, mask)
-                loss = loss + dloss
-            inputs = list(leaves.values()) + [screen_offset]
-            got = torch.autograd.grad(loss, inputs, allow_unused=True)
-        got = [torch.zeros_like(x) if g is None else g
-               for x, g in zip(inputs, got)]
+            with tracing.span("step.loss"):
+                image = out["render"]
+                if camera.alpha_mask is not None:
+                    image = image * camera.alpha_mask[None]
+                ll1 = losses.l1_loss(image, camera.image)
+                ssim_v = losses.ssim(image, camera.image)
+                loss = ((1.0 - opt_cfg.lambda_dssim) * ll1
+                        + opt_cfg.lambda_dssim * (1.0 - ssim_v))
+                dloss = torch.zeros((), device=dev)
+                if opt_cfg.depth_feedback and camera.invdepth is not None:
+                    mask = (camera.depth_mask if camera.depth_mask is not None
+                            else torch.ones_like(camera.invdepth))
+                    dloss = depth_l1_weight(step, opt_cfg) * \
+                        losses.depth_l1_loss(out["invdepth"][0],
+                                             camera.invdepth, mask)
+                    loss = loss + dloss
+            with tracing.span("step.backward"):
+                inputs = list(leaves.values()) + [screen_offset]
+                got = torch.autograd.grad(loss, inputs, allow_unused=True)
+                got = [torch.zeros_like(x) if g is None else g
+                       for x, g in zip(inputs, got)]
         grads = GaussianParams(**dict(zip(PARAM_NAMES, got[:-1])))
         screen_grad = got[-1]
         loss, ll1, ssim_v, dloss = (x.detach()
                                     for x in (loss, ll1, ssim_v, dloss))
 
-        radii = out["radii"]
-        visibility = radii > 0
-        lrs = learning_rates(step, opt_cfg, state.spatial_lr_scale)
-        new_params, new_opt = optim.adam_update(
-            state.params, grads, opt_state, lrs, visibility=visibility,
-            sparse=sparse)
-        # An overflowed frame was missing pairs and a non-finite loss is a
-        # degenerate frame: either way the update is dropped (and counted).
-        ok = torch.isfinite(loss)
-        if out.get("overflow") is not None:
-            ok = ok & (out["overflow"] == 0)
-        state = state.replace(params=_where(ok, new_params, state.params))
-        opt_state = _where(ok, new_opt, opt_state)
-        stats = densify_ops.add_densification_stats(
-            state, screen_grad, radii, camera.width, camera.height)
-        state = state.replace(**{k: _where(ok, getattr(stats, k),
-                                           getattr(state, k))
-                                 for k in ("max_radii2d",
-                                           "xyz_gradient_accum", "denom")})
-        metrics = {
-            "loss": loss, "l1": ll1, "ssim": ssim_v, "depth_loss": dloss,
-            "n_visible": torch.sum(visibility.to(torch.int32)),
-            "n_active": state.num_active,
-            "skipped": (~ok).to(torch.int32),
-        }
+        with tracing.span("step.adam"):
+            radii = out["radii"]
+            visibility = radii > 0
+            lrs = learning_rates(step, opt_cfg, state.spatial_lr_scale)
+            new_params, new_opt = optim.adam_update(
+                state.params, grads, opt_state, lrs, visibility=visibility,
+                sparse=sparse)
+        with tracing.span("step.stats"):
+            # An overflowed frame was missing pairs and a non-finite loss
+            # is a degenerate frame: either way the update is dropped (and
+            # counted).
+            ok = torch.isfinite(loss)
+            if out.get("overflow") is not None:
+                ok = ok & (out["overflow"] == 0)
+            state = state.replace(params=_where(ok, new_params, state.params))
+            opt_state = _where(ok, new_opt, opt_state)
+            stats = densify_ops.add_densification_stats(
+                state, screen_grad, radii, camera.width, camera.height)
+            state = state.replace(**{k: _where(ok, getattr(stats, k),
+                                               getattr(state, k))
+                                     for k in ("max_radii2d",
+                                               "xyz_gradient_accum",
+                                               "denom")})
+            metrics = {
+                "loss": loss, "l1": ll1, "ssim": ssim_v, "depth_loss": dloss,
+                "n_visible": torch.sum(visibility.to(torch.int32)),
+                "n_active": state.num_active,
+                "skipped": (~ok).to(torch.int32),
+            }
         if out.get("num_pairs") is not None:
             metrics["num_pairs"] = out["num_pairs"]
             metrics["overflow"] = out["overflow"]
@@ -184,14 +202,16 @@ def eval_image(camera: Camera, state: GaussianState, bg: torch.Tensor,
     """No-grad render plus PSNR/L1 against the camera's image, if any.
     ``overflow`` is returned so callers can warn: an overflowed render is
     missing pairs."""
-    out = render(camera, state, bg, antialiasing=antialiasing,
-                 use_trained_exp=use_trained_exp, backend=backend,
-                 pair_capacity=pair_capacity)
-    img = out["render"]
-    res = {"render": img}
-    if out.get("overflow") is not None:
-        res["overflow"] = out["overflow"]
-    if camera.image is not None:
-        res["psnr"] = losses.psnr(img, camera.image)
-        res["l1"] = losses.l1_loss(img, camera.image)
+    with tracing.span("eval"):
+        out = render(camera, state, bg, antialiasing=antialiasing,
+                     use_trained_exp=use_trained_exp, backend=backend,
+                     pair_capacity=pair_capacity)
+        img = out["render"]
+        res = {"render": img}
+        if out.get("overflow") is not None:
+            res["overflow"] = out["overflow"]
+        if camera.image is not None:
+            with tracing.span("eval.score"):
+                res["psnr"] = losses.psnr(img, camera.image)
+                res["l1"] = losses.l1_loss(img, camera.image)
     return res

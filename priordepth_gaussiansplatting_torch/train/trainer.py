@@ -26,6 +26,15 @@ gathers the store and takes the event's draws; rank 0 runs the event and
 broadcasts the store, every rank places its shard again, and the ranks'
 active counts must agree. The kernel launches of the events, like those of
 the evaluations, are left out of the steps' count.
+
+The logged ``iter_time`` is ms per iteration: a drained block's host time
+over its iterations (the reports, snapshots and checkpoints after the
+previous drain left out). Under a profiler (``utils/tracing.py``) each
+step is a ``step`` span and the loop's host work the spans
+``train.densify``, ``train.reset_opacity``, ``train.event`` (injection,
+prune), ``train.drain`` (counting the block's ``skipped`` updates and each
+``ladder`` move of the pair capacity), ``train.report`` and
+``train.save``.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from ..ops import render as render_ops
 from ..parallel import integrate as par
 from ..parallel import step as pstep
 from ..parallel.mesh import GAUSS_AXIS, all_gather_rows, gather_world, psum
+from ..utils import tracing
 from ..utils.config import (ModelConfig, OptimizationConfig, PipelineConfig,
                             save_cfg_args)
 from ..utils.logging import MetricsLogger
@@ -255,7 +265,7 @@ class Trainer:
         # The kernel launches of the steps: those of the whole run, less
         # those of the reports and the events.
         base = launch_counts()
-        t_start = time.time()
+        t_start = self._block_start = time.time()
         for it in range(first, total + 1):
             self.iteration = it
             # SH degree bump every 1000 iterations (``train.py:126-127``).
@@ -271,43 +281,58 @@ class Trainer:
             if it < opt.densify_until_iter:
                 if (it > opt.densify_from_iter
                         and it % opt.densification_interval == 0):
-                    noise = (self.noise_source() if self.noise_source
-                             else None)
-                    self.state, self.opt_state, _ = self.fns.densify(
-                        self.state, self.opt_state,
-                        use_size_threshold=it > opt.opacity_reset_interval,
-                        noise=noise, **self._densify_draws())
-                    self.state, self.opt_state, grew = self._grow()
+                    with tracing.span("train.densify"):
+                        noise = (self.noise_source() if self.noise_source
+                                 else None)
+                        self.state, self.opt_state, _ = self.fns.densify(
+                            self.state, self.opt_state,
+                            use_size_threshold=(
+                                it > opt.opacity_reset_interval),
+                            noise=noise, **self._densify_draws())
+                        self.state, self.opt_state, grew = self._grow()
                     if grew and not self.quiet:
                         print(f"[it {it}] capacity grown to "
                               f"{self.capacity}")
                 if (it % opt.opacity_reset_interval == 0
                         or (self.model_cfg.white_background
                             and it == opt.densify_from_iter)):
-                    self.state, self.opt_state = self.fns.reset_opacity(
-                        self.state, self.opt_state)
+                    with tracing.span("train.reset_opacity"):
+                        self.state, self.opt_state = self.fns.reset_opacity(
+                            self.state, self.opt_state)
 
             # PriorDepth thesis events (train.py:193-291).
             if opt.noise_injection_iter and it == opt.noise_injection_iter:
-                self._aside(base, self.inject_noise)
+                with tracing.span("train.event"):
+                    self._aside(base, self.inject_noise)
             if opt.floating_prune_iter and it == opt.floating_prune_iter:
-                self._aside(base, self.run_floating_prune)
+                with tracing.span("train.event"):
+                    self._aside(base, self.run_floating_prune)
 
             pending.append((it, self._metrics_vector(metrics)))
-            if (it % 50 == 0 or it >= total or it in test_iterations
-                    or it in save_iterations or it in checkpoint_iterations):
-                self._drain(pending, total, t_start)
+            drained = (it % 50 == 0 or it >= total or it in test_iterations
+                       or it in save_iterations
+                       or it in checkpoint_iterations)
+            if drained:
+                with tracing.span("train.drain"):
+                    self._drain(pending, total, t_start)
 
             if it in test_iterations:
-                self._aside(base, self.report, it)
+                with tracing.span("train.report"):
+                    self._aside(base, self.report, it)
             if it in save_iterations and self.model_cfg.model_path:
-                self.save_snapshot(it)
+                with tracing.span("train.save"):
+                    self.save_snapshot(it)
             if it in checkpoint_iterations and self.model_cfg.model_path:
-                self.save_checkpoint(it)
+                with tracing.span("train.save"):
+                    self.save_checkpoint(it)
             if on_iteration is not None:
                 # The hook's launches (the viewer's renders) stay out of
                 # the steps' count.
                 self._aside(base, on_iteration, self, it, metrics)
+            if drained:
+                # The next block's clock starts after this drain's
+                # reports, snapshots and checkpoints.
+                self._block_start = time.time()
         wall = time.time() - t_start
         return {"iterations": total, "iterations_run": total - first + 1,
                 "wall_s": wall, "final_loss": self.ema_loss,
@@ -332,6 +357,10 @@ class Trainer:
         """Copy the queued metrics to the host in one transfer and act on
         them in iteration order."""
         rows = torch.stack([v for _, v in pending]).cpu().numpy()
+        # ms per iteration, the block's mean on the host clock (the
+        # reference's ``iter_time`` is one step's).
+        iter_ms = 1e3 * (time.time() - self._block_start) / len(pending)
+        tracing.count("skipped", int(rows[:, METRICS.index("skipped")].sum()))
         for (jt, _), row in zip(pending, rows):
             loss, l1 = float(row[0]), float(row[1])
             n_active, num_pairs, overflow, skipped = (int(v) for v in row[2:])
@@ -354,7 +383,7 @@ class Trainer:
                     "train_loss_patches/l1_loss": l1,
                     "train_loss_patches/total_loss": loss,
                     "total_points": n_active,
-                    "iter_time": time.time() - t_start,
+                    "iter_time": iter_ms,
                     "skipped": skipped,
                 }, jt)
             if not self.quiet and jt % 100 == 0:
@@ -385,6 +414,7 @@ class Trainer:
         if desired < effective and (num_pairs + overflow) * 2.0 > effective:
             return
         if desired != effective:
+            tracing.count("ladder", 1)
             self.pair_capacity = desired
             self.fns = self._make_fns(pair_capacity=desired)
             if not self.quiet:

@@ -172,11 +172,6 @@ def _densify_probe(tmp_path):
     densify_probe.main([str(tmp_path / "chkpnt1.pkl"), "-s", str(tmp_path)])
 
 
-def _bench():
-    from priordepth_gaussiansplatting_torch import bench
-    bench.run(64, 32, 32, 1, None)
-
-
 def _trainer():
     from priordepth_gaussiansplatting_torch.train import trainer
     from priordepth_gaussiansplatting_torch.utils import config
@@ -235,7 +230,7 @@ def _viewer():
                                    "initialize_multihost", "train_cli",
                                    "perf_probe", "trainer",
                                    "load_checkpoint", "densify_probe",
-                                   "bench", "metrics_cli", "feature_table",
+                                   "metrics_cli", "feature_table",
                                    "depth_model", "depth_priors", "viewer",
                                    "depth_trainer", "depth_train_proof"])
 def test_entry_points_need_the_card_or_cpu(entry, tmp_path):
@@ -255,7 +250,6 @@ def test_entry_points_need_the_card_or_cpu(entry, tmp_path):
         "trainer": _trainer,
         "load_checkpoint": lambda: _load_checkpoint(tmp_path),
         "densify_probe": lambda: _densify_probe(tmp_path),
-        "bench": _bench,
         "metrics_cli": lambda: _metrics_cli(tmp_path),
         "feature_table": _feature_table,
         "depth_model": _depth_model,
