@@ -23,7 +23,8 @@ line per phase:
      the 65,536-Gaussian scene K2's and K3's times beside their bounds;
   3. full: 1,000,000 Gaussians at 1600x1066 (bench.py's random Gaussians,
      drawn with numpy) rendered through ops.render.render(backend=
-     "kernels") for three views, with the launch counts of that run, each
+     "kernels") for three views (K8 projects: autograd records nothing),
+     with the launch counts of that run (K8's on the kernels line too), each
      forward kernel against its plain version at full width, and CUDA-event
      times (``gather``: K5a beside its library call, and walking 1, 2 and
      all 11 rows per pass); then "profile": device time by kernel and host
@@ -38,24 +39,30 @@ line per phase:
      K4 beside ``torch.segment_reduce`` and ``index_add_``); fwd+bwd and
      full-step times; then
      "train_profile": the profiler's breakdown of one train step per view;
-  5. train_mid: the mid scene's parameter gradients from the kernels
+  5. project: K8 (ops.projection.project_state) against its plain
+     version on the card at the render cells' shapes: 3,000,000 rows of a
+     captured scene (utils/testing.py::captured_store) at 1297x840 and
+     1,660,000 at 979x546, SH degree 3, within the tolerances of
+     utils/testing.py::projection_gaps; K8's and the plain version's times
+     by CUDA events beside the bytes' bound;
+  6. train_mid: the mid scene's parameter gradients from the kernels
      against those from the plain versions on the same card, K4 on that
      step's own pairs (``k4``, as in train), then 3 steps,
      a densify round (first against the same round on the CPU), an opacity
      reset and 2 more steps;
-  6. bands: view 0 of the full scene composited band by band with K6
+  7. bands: view 0 of the full scene composited band by band with K6
      (ops.rasterize.composite_bands, forward and backward) in 4 and in 3
      bands, the launch counts of that run; the assembled frame against K2
      and the summed band gradients against K3, bit for bit; two slices of
      8 slots (the busiest tiles; the last tiles and the pad slots) and a
      whole band against the plain version; CUDA-event times per band;
-  7. sharded: parallel.integrate.make_sharded_fns in a one-rank NCCL
+  8. sharded: parallel.integrate.make_sharded_fns in a one-rank NCCL
      process group on the card: 10 steps over the three views of the full
      scene (every step's launches, guard and gradients checked), 3 steps
      against train.step.make_train_step from the same state, then on the
      mid scene a sharded densify round, an opacity reset and a step;
-  8. cli: the port's render CLI on a raycast synthetic scene;
-  9. bin: K7 (``ops.binning.expand_tiles``) through ``bin_gaussians`` on
+  9. cli: the port's render CLI on a raycast synthetic scene;
+ 10. bin: K7 (``ops.binning.expand_tiles``) through ``bin_gaussians`` on
      view 0 of the full scene with P = 2^22, the launch counts of that run;
      its slots and histogram against the plain version bit for bit, the
      TileBinning against the plain pipeline's, a rect 256 tiles wide (a
@@ -63,9 +70,9 @@ line per phase:
      whose blocks' owners reach past K7's window (they search in device
      memory) bit for bit; the blocks that spill on both scenes under K7's
      window and under K1's; K7's time queued and unqueued;
- 10. probe: ``python -m priordepth_gaussiansplatting_torch.perf_probe
+ 11. probe: ``python -m priordepth_gaussiansplatting_torch.perf_probe
      1000000 1600 1066`` (stage times; K7 launched once per bin+sort call);
- 11. train_cli: ``python -m priordepth_gaussiansplatting_torch.train`` on a
+ 12. train_cli: ``python -m priordepth_gaussiansplatting_torch.train`` on a
      512x512, 32-view raycast scene for 1,000 iterations with a store of
      2^18 rows, whose default pair capacity (2^20) holds every pair of an
      evaluation view, and the steps' pair capacity pinned there too (the
@@ -73,7 +80,7 @@ line per phase:
      over the run, none skipped, no evaluation view overflowing, held-out
      PSNR higher at 1,000 than at 500), a resume from its iteration-500
      checkpoint, and the render CLI on its snapshot;
- 12. mesh_train: ``train.trainer.Trainer(mesh=Mesh(1, 1))`` in a one-rank
+ 13. mesh_train: ``train.trainer.Trainer(mesh=Mesh(1, 1))`` in a one-rank
      NCCL group on train_cli's scene and flags for 1,000 iterations (none
      skipped, held-out PSNR higher at 1,000 than at 500, each step kernel
      once per iteration): its per-iteration losses equal (rel 1e-5) to
@@ -81,12 +88,12 @@ line per phase:
      to the first densify round that trainer's equal to the train_cli
      run's logged ones; a resume from its iteration-500 checkpoint for 20
      iterations, and its it/s beside train_cli's;
- 13. thesis: train_cli's scene with inverse-depth priors (16-bit PNGs under
+ 14. thesis: train_cli's scene with inverse-depth priors (16-bit PNGs under
      ``depths/``, from the scene generator's own ``camera_pose`` and
      ``render_view``) through the train CLI with ``-d depths`` for 1,000
      iterations, the noise injection at 700 (+6 active rows) and the
      floating-object prune at 900 (its deletions and views printed, each
-     view rendered through K1, K5a and K2, none overflowing its pair
+     view rendered through K8, K1, K5a and K2, none overflowing its pair
      capacity, no update skipped, held-out PSNR logged); then from the
      checkpoint at 899 ``train/prune.py::prune_loop`` with one RandomState
      seed three times: on the card through the kernels, on the card through
@@ -99,12 +106,12 @@ line per phase:
      right, so that about half the rows it judges go): the kernel
      render's mask against the plain render's, counted the same way, and
      the time of render + ``prune_view`` by CUDA events;
- 14. metrics: ``python -m priordepth_gaussiansplatting_torch.metrics`` on the
+ 15. metrics: ``python -m priordepth_gaussiansplatting_torch.metrics`` on the
      render CLI's output of train_cli (its held-out views at 1,000) with
      random VGG16 LPIPS weights written from a numpy seed, on the card
      against ``--device cpu`` (PSNR and SSIM within 1e-4, LPIPS rtol 1e-3),
      and its PSNR beside the trainer's report for the same views;
- 15. depth: the depth-prior inference path (``depth/``, no kernel of the
+ 16. depth: the depth-prior inference path (``depth/``, no kernel of the
      table) with the repo's configuration (embed 384, 6 blocks, 6 heads,
      patch 16, 16 bins) and weights drawn from a seed: the TTA priors of
      train_cli's 32 images (1,024² inputs, 4,096 patches, the positional
@@ -114,11 +121,11 @@ line per phase:
      CPU), and a ViT-L encoder (DepthAnythingV2-L's DINOv2 layout) imported
      from a random state dict written with torch.save, at 518² against the
      CPU, its ms and peak memory;
- 16. depth_chain: train_cli's scene with 2D observations of its sparse
+ 17. depth_chain: train_cli's scene with 2D observations of its sparse
      points, priors by that model on the card, ``make_depth_scale`` (a
      non-empty ``depth_params.json``), then the train CLI with ``-d
      depths`` for 300 iterations (finite losses, no skipped update);
- 17. chain: the chain CLIs on train_cli's scene, through executable
+ 18. chain: the chain CLIs on train_cli's scene, through executable
      stand-ins for ffmpeg, COLMAP, DepthAnythingV2's ``run.py`` and the
      SIBR app (``utils/standins.py``; none of the tools is installed):
      ``python -m priordepth_gaussiansplatting_torch.train_video`` (frames)
@@ -136,15 +143,15 @@ line per phase:
      Mip-NeRF 360 capture's size (200 images x 10,000 2D points, 200,000
      points with 10-entry tracks) against the Python readers, field by
      field, with both readers' seconds;
- 18. viewer: the network viewer in-process over loopback, a client asking
+ 19. viewer: the network viewer in-process over loopback, a client asking
      for a held-out view of train_cli's checkpoint at 512² and view 0 of
      the full scene at 1600x1066 (every image equal to a direct render
-     through K1, K5a and K2, within one level of the plain versions',
+     through K8, K1, K5a and K2, within one level of the plain versions',
      launched once each per request, none overflowing; ms a request), then
      the train CLI with the viewer on and a client that holds training for
      three requests and lets it go on (equal images while held, a later
      one after; the renders' launches apart from the steps');
- 19. depth_train: the depth trainer (``depth/trainer.py``, no kernel of the
+ 20. depth_train: the depth trainer (``depth/trainer.py``, no kernel of the
      table): the repo's depth configuration at 128², batch 4, 3 steps from
      seeded weights on raycast views, on the card against the CPU and with
      the plain attention form against the fused one (losses within 1e-4
@@ -156,7 +163,7 @@ line per phase:
      memory, the losses (finite; the last 20 steps' mean at most half the
      first 20's), held-out a1/abs_rel/rmse, and a checkpoint written and
      reloaded into a model of other weights predicting the same depth;
- 20. kernels: one object per kernel (the line before the card's line).
+ 21. kernels: one object per kernel (the line before the card's line).
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -191,7 +198,7 @@ printed), and steps/s of one rank and of N. ``--ranks N --phases NAME``
 runs only the named ones of multi_rank, multi_cli and depth_dp.
 
 With ``--phases NAME ...`` it builds the kernels and runs phase device,
-the named ones of train_cli, mesh_train, thesis, metrics, depth,
+the named ones of project, train_cli, mesh_train, thesis, metrics, depth,
 depth_chain, chain, viewer and depth_train (train_cli first when another
 of them uses its scene: all but depth_train do), without the kernels line.
 
@@ -221,7 +228,10 @@ single-rank step: atol 3e-4 max|g|, rtol 2e-3. A densify round on the
 card against the same round on the CPU (same split draws): equal counts
 and active rows, parameters and moments within 1e-5. K7 (the tile-only
 pair expansion) and bin_gaussians: bit for bit against the plain versions
-and the direct enumeration. Depth (the depth model, DepthModelNK, the ViT-L
+and the direct enumeration. K8 (the projection): within the tolerances of
+utils/testing.py::projection_gaps, the depth bit for bit, the cull and
+the radius differing on at most 2 + rows / 100,000 rows, the radius by
+one. Depth (the depth model, DepthModelNK, the ViT-L
 encoder) on the card against the CPU, and the fused attention against the
 plain form: max|difference| within 1e-3 x max|depth| (or |feature|).
 Viewer images: equal to a direct render through the kernels, within one
@@ -253,6 +263,11 @@ CARD_F32_OPS_PER_S = 67e12
 # Work per unit, counted from the kernels' sources.
 K1_OPS_PER_SLOT = 70      # the cull's f32 operations per pair slot < total
 K2_OPS_PER_EVAL = 20      # f32 operations per (pixel, pair), expf as one
+# K8's f32 operations per row at SH degree 3 (the activations ~20, the
+# covariance ~80, the mean and the EWA product ~90, conic and radius ~25,
+# the SH colour ~160, the rest ~10), and its bytes: 237 read, 48 written.
+K8_OPS_PER_ROW = 450
+K8_BYTES_PER_ROW = 285
 # K3 redoes K2's 20 per evaluation, and per evaluation that a kept, live
 # pair contributes: rho (7), prefix and suffix (3), g_alpha (5), d_power
 # (1), the 10 values (30) and T (1).
@@ -273,8 +288,18 @@ KERNELS = {
                             TPU + "rasterize_pallas.py:913"),
     # K7: _expand_kernel_factory through bin_gaussians (call :220).
     "expand_tiles": ("K7", "expand_pairs", TPU + "binning.py:83"),
+    # K8: no TPU kernel; the projection there is jnp code XLA fuses.
+    "project_fwd": ("K8", "project_fwd", "none: " + TPU + "projection.py"),
 }
 FORWARD = ("expand_pairs", "gather_rows", "composite_fwd")
+# The kernels of a frame that autograd does not record: K8 projects.
+RENDER = ("project_fwd",) + FORWARD
+# K8's checks: (label, seed, rows, width, height, focal, ring radius and
+# height) of the render cells' stores and views.
+PROJECT_CASES = (("m360_3m_1297x840", 11, 3_000_000, 1297, 840, 1160.0, 2.2,
+                  0.4),
+                 ("truck_1.66m_979x546", 12, 1_660_000, 979, 546, 580.0, 2.5,
+                  0.3))
 # The kernels of one train step on the whole frame (single-rank or sharded
 # on one rank), each launched once per step.
 STEP = ("expand_pairs", "gather_rows", "composite_fwd", "composite_bwd",
@@ -586,8 +611,9 @@ class Smoke:
     def plain_kernels(self):
         """Every kernel wrapper of the path replaced by its plain version,
         so the same autograd Functions run on the card without a kernel."""
-        b, r = self.binning, self.rasterize
+        b, r, p = self.binning, self.rasterize, self.projection
         return swapped([
+            (p, "project_state", p.project_state_plain),
             (b, "expand_pairs", b.expand_pairs_plain),
             (b, "expand_tiles", b.expand_tiles_plain),
             (b, "gather_rows", b.gather_rows_plain),
@@ -968,18 +994,21 @@ class Smoke:
             out = render(cam)
             t.cuda.synchronize()
             after = k.launch_counts()
-            per_view.append({n: after[n] - before[n] for n in FORWARD})
+            per_view.append({n: after[n] - before[n] for n in RENDER})
             outs.append(out)
         launches = k.launch_counts()
         for i, (view, out) in enumerate(zip(per_view, outs)):
-            assert all(view[n] >= 1 for n in FORWARD), (i, view)
+            assert all(view[n] >= 1 for n in RENDER), (i, view)
             img = out["render"]
             assert img.shape == (3, FULL_H, FULL_W)
             assert bool(t.isfinite(img).all()) and bool(
                 t.isfinite(out["invdepth"]).all()), f"view {i}: non-finite"
             assert int(out["overflow"]) == 0, f"view {i} overflowed"
             assert float(img.std()) > 0 and int(out["num_pairs"]) > 0
-        assert all(launches[n] == len(cams) for n in FORWARD), launches
+        assert all(launches[n] == len(cams) for n in RENDER), launches
+        # K8 runs in no train step: the kernels line takes its launches
+        # from this run of the main path.
+        self.full["k8_launches"] = launches["project_fwd"]
 
         # Kernels against plain versions on view 0's intermediates.
         proj0 = self.project(cams[0], state)
@@ -1334,7 +1363,8 @@ class Smoke:
                 chain["state"], chain["opt"], cam, chain["it"], None, bg)
         step_ms, step_gib = host_ms(train_step)
 
-        self.results.update(launches=launches)
+        self.results.update(launches=dict(
+            launches, project_fwd=self.full["k8_launches"]))
         for key_, val in (("errs", errs), ("ms", ms), ("plain_ms", plain_ms),
                           ("library_ms", library_ms),
                           ("bound_ms", bound_ms), ("bound_by", bound_by)):
@@ -1357,6 +1387,46 @@ class Smoke:
         self.phase_profile(
             lambda cam: fns.step(state, opt, cam, 1, None, bg), cams,
             "train_profile")
+
+    def phase_project(self):
+        """K8 against its plain version at the render cells' stores and
+        views (PROJECT_CASES), and its time beside the plain version's and
+        the bytes' bound."""
+        t, T, p = self.torch, self.testing, self.projection
+        out = {}
+        for label, seed, n, w, h, focal, radius, rise in PROJECT_CASES:
+            st = T.captured_store(seed, n, device=self.dev)
+            cam = T.ring_camera(0.7, w, h, focal, radius, rise,
+                                device=self.dev)
+            got = p.project_state(st, cam)
+            want = p.project_state_plain(st, cam)
+            gaps = T.projection_gaps(got, want, st, cam)
+            few = 2 + n // 100_000
+            assert gaps["cull_moved"] <= few and gaps["radius_moved"] <= few \
+                and gaps["radius_gap"] <= 1 and gaps["depth_moved"] == 0, \
+                (label, gaps)
+            assert all(v <= 1 for f, v in gaps.items() if f in (
+                "mean2d", "opacity", "invdepth", "conic", "rgb")), \
+                (label, gaps)
+            ms = cuda_ms(t, lambda: p.project_state(st, cam), reps=50)
+            plain_ms = cuda_ms(t, lambda: p.project_state_plain(st, cam),
+                               reps=3)
+            bound_ms, bound_by = bound(K8_BYTES_PER_ROW * n,
+                                       K8_OPS_PER_ROW * n)
+            out[label] = dict(rows=n, width=w, height=h, ms=ms,
+                              plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, x_bound=ms / bound_ms,
+                              gaps=gaps)
+            del st, got, want
+            t.cuda.empty_cache()
+        first = out[PROJECT_CASES[0][0]]
+        for key_, val in (
+                ("errs", max(o["gaps"]["max_abs"] for o in out.values())),
+                ("ms", first["ms"]), ("plain_ms", first["plain_ms"]),
+                ("library_ms", None), ("bound_ms", first["bound_ms"]),
+                ("bound_by", first["bound_by"])):
+            self.results.setdefault(key_, {})["project_fwd"] = val
+        emit("project", ok=True, **out)
 
     def phase_train_mid(self):
         """The mid scene: gradients from the kernels against those from the
@@ -2496,7 +2566,7 @@ class Smoke:
         return dict(info=info, active=state.active.cpu().numpy(),
                     near_depth=near[0].cpu().numpy(),
                     near_edge=near[1].cpu().numpy(), seconds=seconds,
-                    launches={n: launches[n] for n in FORWARD},
+                    launches={n: launches[n] for n in RENDER},
                     n_active=int(state.num_active))
 
     @staticmethod
@@ -2559,8 +2629,8 @@ class Smoke:
                                  near_edge=e.cpu().numpy(),
                                  deleted=int(n_del),
                                  valid=int(terms.valid.sum()),
-                                 launches={n: launches[n] for n in FORWARD})
-        assert res["kernels"]["launches"] == dict.fromkeys(FORWARD, 1), res
+                                 launches={n: launches[n] for n in RENDER})
+        assert res["kernels"]["launches"] == dict.fromkeys(RENDER, 1), res
         assert not any(res["plain"]["launches"].values()), res
         agree = self.masks_agree(res["kernels"], res["plain"])
         deleted = res["kernels"]["deleted"]
@@ -2612,7 +2682,7 @@ class Smoke:
             assert prn["overflowed_views"] == 0, prn
             rendered = len(prn["history"])
             assert rendered >= views * 7 // 8 and prn["deleted"] >= 1, prn
-            assert prn["launches"] == dict.fromkeys(FORWARD, rendered), prn
+            assert prn["launches"] == dict.fromkeys(RENDER, rendered), prn
             assert (f"[it {THESIS_PRUNE}] floating-object prune: deleted "
                     f"{prn['deleted']} over {prn['views']} views"
                     ) in run["out"]
@@ -2635,7 +2705,7 @@ class Smoke:
                 full = self.prune_full_width()
                 loops["cpu"] = cpu.result()
         n = len(loops["kernels"]["info"]["history"])
-        assert loops["kernels"]["launches"] == dict.fromkeys(FORWARD, n)
+        assert loops["kernels"]["launches"] == dict.fromkeys(RENDER, n)
         for name in ("plain", "cpu"):
             assert not any(loops[name]["launches"].values()), loops[name]
         agree = {f"kernels_vs_{name}": self.masks_agree(loops["kernels"],
@@ -3285,7 +3355,7 @@ class Smoke:
                 replies, times = self.drive_viewer(gui, st, bg, msg,
                                                    VIEWER_REQUESTS)
                 launches = k.launch_counts()
-                assert launches == {n: (VIEWER_REQUESTS if n in FORWARD
+                assert launches == {n: (VIEWER_REQUESTS if n in RENDER
                                         else 0) for n in launches}, launches
                 direct = self.render.render(cam, st, bg)
                 want = image(direct)
@@ -3307,7 +3377,7 @@ class Smoke:
                     pair_capacity=self.rasterize.default_pair_capacity(
                         st.capacity),
                     plain_max_level_diff=plain_diff,
-                    launches={n: launches[n] for n in FORWARD})
+                    launches={n: launches[n] for n in RENDER})
         finally:
             gui.close()
         stats = gui.stats
@@ -3503,13 +3573,13 @@ def card_memory_peak():
 
 def viewer_run(run: dict, session: dict, port: int) -> dict:
     """What a train CLI run with the viewer and `viewer_session`'s client
-    shows: every request rendered (through K1, K5a and K2, once each), none
-    failed, the renders' launches kept out of the steps'."""
+    shows: every request rendered (through K8, K1, K5a and K2, once each),
+    none failed, the renders' launches kept out of the steps'."""
     v = run["viewer"]
     n = session["requests"]
     assert f"network viewer on 127.0.0.1:{port}" in run["out"]
     assert (v["renders"], v["errors"], v["overflowed_views"]) == (n, 0, 0), v
-    assert v["launches"] == dict.fromkeys(FORWARD, n), v
+    assert v["launches"] == dict.fromkeys(RENDER, n), v
     return dict(session, iterations=run["iterations_run"],
                 wall_s=run["wall_s"], viewer=v,
                 step_launches=run["step_launches"], skipped=run["skipped"])
@@ -3542,9 +3612,11 @@ def main(argv=None) -> int:
              "one per card, in an NCCL group, then the train CLI over N "
              "cards (needs N cards)")
     parser.add_argument(
-        "--phases", nargs="+", choices=CLI_PHASES + RANK_PHASES,
-        help="run only phase device and these phases of the CLIs, in their "
-             "order (train_cli first when one uses its scene and model); "
+        "--phases", nargs="+",
+        choices=("project",) + CLI_PHASES + RANK_PHASES,
+        help="run only phase device and these phases (project, then those "
+             "of the CLIs), in their order (train_cli first when one uses "
+             "its scene and model); "
              "no kernels line. With --ranks, only these of its phases")
     parser.add_argument(
         "--turns", metavar="DIR",
@@ -3552,7 +3624,7 @@ def main(argv=None) -> int:
              "built from DIR's priordepth_gaussiansplatting_torch/csrc/")
     args = parser.parse_args(argv)
     wrong = set(args.phases or ()) - set(RANK_PHASES if args.ranks > 1
-                                         else CLI_PHASES)
+                                         else ("project",) + CLI_PHASES)
     if wrong:
         parser.error(f"phases {sorted(wrong)} do not run with --ranks "
                      f"{args.ranks}")
@@ -3576,6 +3648,8 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as work:
             smoke.work = work
             smoke.phase_device(build_seconds, build_wall)
+            if "project" in args.phases:
+                smoke.phase_project()
             scene = set(args.phases) & set(CLI_PHASES[1:-1])
             for name in CLI_PHASES:
                 if name in args.phases or (name == "train_cli" and scene):
@@ -3587,6 +3661,7 @@ def main(argv=None) -> int:
         smoke.phase_mid()
         smoke.phase_full()
         smoke.phase_train()
+        smoke.phase_project()
         smoke.phase_train_mid()
         smoke.phase_bands()
         smoke.phase_sharded()
@@ -3761,7 +3836,7 @@ def multi_events(run: dict, ranks: int) -> list:
     """The thesis events of a train CLI run over `ranks` ranks: each at its
     iteration, the same active count on every rank (rank 0 prints the
     counts it gathered), six rows injected, the prune's renders through
-    K1, K5a and K2 on rank 0."""
+    K8, K1, K5a and K2 on rank 0."""
     inj, prn = run["events"]
     assert (inj["iteration"], prn["iteration"]) == (MULTI_INJECT,
                                                     MULTI_PRUNE), run
@@ -3770,7 +3845,7 @@ def multi_events(run: dict, ranks: int) -> list:
         assert f"active rows by rank: {e['n_active_by_rank']}" in run["out"]
     assert inj["n_active"] == inj["n_active_before"] + 6, inj
     assert prn["overflowed_views"] == 0 and prn["deleted"] >= 1, prn
-    assert prn["launches"] == dict.fromkeys(FORWARD,
+    assert prn["launches"] == dict.fromkeys(RENDER,
                                             len(prn["history"])), prn
     return [{k: e.get(k) for k in ("event", "iteration", "n_active_before",
                                    "n_active", "n_active_by_rank", "deleted",

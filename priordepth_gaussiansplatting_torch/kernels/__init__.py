@@ -8,6 +8,8 @@ pair table, ``gather_rows_bwd`` is the backward's sort-back), or the name of
 a source's second entry point (``composite_fwd_bands`` and
 ``composite_bwd_bands``, K6: the compositor over one band of the tile grid;
 ``expand_tiles``, K7: the pair expansion without attributes or cull).
+``project_fwd`` is K8, the projection of a store that autograd does not
+record.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from . import build
 
 # The sources in csrc/, one library each.
 KERNELS = ("expand_pairs", "gather_rows", "composite_fwd", "composite_bwd",
-           "segment_reduce")
+           "segment_reduce", "project_fwd")
 # What the launch counts are kept under.
 LABELS = KERNELS + ("gather_rows_bwd", "composite_fwd_bands",
                    "composite_bwd_bands", "expand_tiles")
@@ -29,6 +31,7 @@ _launches = dict.fromkeys(LABELS, 0)
 
 ptr = ctypes.c_void_p
 i32 = ctypes.c_int
+f32 = ctypes.c_float
 
 
 def launch_counts() -> dict:

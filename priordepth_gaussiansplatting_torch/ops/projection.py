@@ -13,6 +13,12 @@ Numerical contract, as in the JAX package:
     once to bf16 (RTNE), kept in f32 tensors.
 Geometry products run in full f32: the package switches TF32 off when it
 is imported.
+
+:func:`project_state` projects a whole store on the card in one launch:
+K8 (``csrc/project_fwd.cu``), whose plain version
+:func:`project_state_plain` is :func:`project_gaussians` over the store's
+activations. ``ops/render.py`` takes K8 where the kernels run on the card
+and autograd would record nothing (:func:`records_grad`).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from .. import kernels
 from ..core import sh as shlib
 
 FRUSTUM_NEAR_Z = 0.2
@@ -192,6 +199,98 @@ def project_gaussians(
         mean2d=mean2d, conic=round_bf16(conic), opacity=round_bf16(op),
         rgb=round_bf16(rgb), depth=depth, invdepth=round_bf16(invdepth),
         radius=radius)
+
+
+# --- K8: the projection of a store without autograd --------------------------
+
+def records_grad(state, camera, override_color=None) -> bool:
+    """Whether autograd would record a projection of `state` (a
+    ``GaussianState``) from `camera`."""
+    if not torch.is_grad_enabled():
+        return False
+    p = state.params
+    return any(t is not None and t.requires_grad for t in (
+        p.xyz, p.scaling, p.rotation, p.opacity, p.features_dc,
+        p.features_rest, override_color, camera.world_view, camera.full_proj,
+        camera.cam_center))
+
+
+def project_state_plain(state, camera, *, scaling_modifier: float = 1.0,
+                        antialiasing: bool = False,
+                        override_color: Optional[torch.Tensor] = None
+                        ) -> ProjectedGaussians:
+    """Plain PyTorch version of K8 (see ``csrc/project_fwd.cu``):
+    :func:`project_gaussians` over the store's activations, every row of
+    the store, inactive rows culled."""
+    return project_gaussians(
+        state.params.xyz, state.get_covariance(scaling_modifier),
+        state.get_opacity(), state.get_features(), state.max_sh_degree,
+        camera.world_view, camera.full_proj, camera.cam_center, camera.width,
+        camera.height, camera.tan_fovx, camera.tan_fovy,
+        antialiasing=antialiasing, valid_mask=state.active,
+        colors_precomp=override_color)
+
+
+def project_state(state, camera, *, scaling_modifier: float = 1.0,
+                  antialiasing: bool = False,
+                  override_color: Optional[torch.Tensor] = None
+                  ) -> ProjectedGaussians:
+    """K8: :func:`project_state_plain` in one launch, for a store on the
+    card. K8 has no backward and its outputs carry no graph, so callers
+    take it only where autograd records nothing (:func:`records_grad`), as
+    ``ops/render.py`` does. The SH colour uses the store's active degree,
+    at most its maximum (4 at most); `override_color` (C, 3) replaces it."""
+    p = state.params
+    n = state.capacity
+    ins = dict(xyz=p.xyz, scaling=p.scaling, rotation=p.rotation,
+               opacity=p.opacity, features_dc=p.features_dc,
+               features_rest=p.features_rest, world_view=camera.world_view,
+               full_proj=camera.full_proj, cam_center=camera.cam_center)
+    if override_color is not None:
+        ins["override_color"] = override_color
+    kernels.check_cuda("project_fwd", active=state.active, **ins)
+    if any(t.dtype != torch.float32 for t in ins.values()) \
+            or state.active.dtype != torch.bool:
+        raise TypeError("project_fwd: f32 inputs and a bool active mask")
+    rest_w = p.features_rest.shape[1] if p.features_rest.dim() == 2 else -1
+    degree = (0 if override_color is not None
+              else min(state.active_sh_degree, state.max_sh_degree))
+    shapes = {"xyz": (n, 3), "scaling": (n, 3), "rotation": (n, 4),
+              "opacity": (n, 1), "features_dc": (n, 3),
+              "override_color": (n, 3), "world_view": (4, 4),
+              "full_proj": (4, 4), "cam_center": (3,)}
+    if any(tuple(t.shape) != shapes[k] for k, t in ins.items()
+           if k != "features_rest") or state.active.shape != (n,) \
+            or p.features_rest.shape[0] != n or n >= 2 ** 31 \
+            or not 0 <= state.max_sh_degree <= shlib.MAX_SH_DEGREE \
+            or rest_w < 3 * (shlib.num_sh_bases(state.max_sh_degree) - 1):
+        raise ValueError("project_fwd: shapes do not match the store")
+    dev = p.xyz.device
+    f32 = torch.float32
+    out = ProjectedGaussians(
+        mean2d=torch.empty(n, 2, dtype=f32, device=dev),
+        conic=torch.empty(n, 3, dtype=f32, device=dev),
+        opacity=torch.empty(n, dtype=f32, device=dev),
+        rgb=torch.empty(n, 3, dtype=f32, device=dev),
+        depth=torch.empty(n, dtype=f32, device=dev),
+        invdepth=torch.empty(n, dtype=f32, device=dev),
+        radius=torch.empty(n, dtype=torch.int32, device=dev))
+    # The scalars as project_gaussians makes them: Python doubles, rounded
+    # to f32 where they meet a tensor.
+    width, height = camera.width, camera.height
+    tan_x, tan_y = camera.tan_fovx, camera.tan_fovy
+    ptr, i, f = kernels.ptr, kernels.i32, kernels.f32
+    kernels.launch(
+        "project_fwd", [ptr] * 11 + [i] * 3 + [f] * 7 + [i] + [ptr] * 7,
+        p.xyz, p.scaling, p.rotation, p.opacity, state.active,
+        p.features_dc, p.features_rest, override_color, camera.world_view,
+        camera.full_proj, camera.cam_center, n, rest_w, degree,
+        float(scaling_modifier), width / (2.0 * tan_x),
+        height / (2.0 * tan_y), 1.3 * tan_x, 1.3 * tan_y, float(width),
+        float(height),
+        int(antialiasing), out.mean2d, out.conic, out.opacity, out.rgb,
+        out.depth, out.invdepth, out.radius)
+    return out
 
 
 def tile_rect_tight(proj: ProjectedGaussians, width: int, height: int):

@@ -7,12 +7,18 @@ where its gradient is the densification statistic. Exposure compensation:
 img' = E[:3, :3] img + E[:3, 3] when ``use_trained_exp`` and the camera has
 an exposure index (``exposure_idx``, which wins) or id.
 
+The projection is K8 (``ops/projection.py::project_state``, one launch)
+where the kernels run on the card and autograd would record nothing, and
+its plain PyTorch version otherwise (the CPU, the dense oracle, a training
+step).
+
 Under a profiler the frame is the span ``render`` with its stages
 (``utils/tracing.py``): ``render.project`` (activations, covariance,
-projection, screen offset), ``render.bin`` (the pair binning and sorts, K1
-and K5a; counts ``pairs.rect``, ``pairs.valid``, ``pairs.capacity`` and
-``pairs.overflow``), ``render.composite`` (K2) and ``render.assemble``
-(tiles to image, background, exposure, clamp).
+projection, screen offset; counts ``project.rows``, the store's rows, and
+``project.kernel_rows``, those K8 projected), ``render.bin`` (the pair
+binning and sorts, K1 and K5a; counts ``pairs.rect``, ``pairs.valid``,
+``pairs.capacity`` and ``pairs.overflow``), ``render.composite`` (K2) and
+``render.assemble`` (tiles to image, background, exposure, clamp).
 """
 
 from __future__ import annotations
@@ -52,20 +58,26 @@ def render(
     versions on the CPU); ``oracle`` the dense oracle."""
     if backend not in ("auto", "kernels", "oracle"):
         raise ValueError(f"unknown backend {backend!r}")
+    on_card = state.params.xyz.device.type == "cuda"
+    use_kernels = backend == "kernels" or (backend == "auto" and on_card)
     with tracing.span("render"):
         with tracing.span("render.project"):
-            proj = proj_ops.project_gaussians(
-                state.params.xyz, state.get_covariance(scaling_modifier),
-                state.get_opacity(), state.get_features(),
-                state.max_sh_degree, camera.world_view, camera.full_proj,
-                camera.cam_center, camera.width, camera.height,
-                camera.tan_fovx, camera.tan_fovy, antialiasing=antialiasing,
-                valid_mask=state.active, colors_precomp=override_color)
+            # K8 where the kernels run on the card and autograd records
+            # nothing, else the PyTorch version, which autograd
+            # differentiates.
+            kernel = use_kernels and on_card and not proj_ops.records_grad(
+                state, camera, override_color)
+            project = (proj_ops.project_state if kernel
+                       else proj_ops.project_state_plain)
+            proj = project(state, camera, scaling_modifier=scaling_modifier,
+                           antialiasing=antialiasing,
+                           override_color=override_color)
+            tracing.count("project.rows", state.capacity)
+            tracing.count("project.kernel_rows",
+                          state.capacity if kernel else 0)
             if screen_offset is not None:
                 proj = proj.replace(mean2d=proj.mean2d + screen_offset)
 
-        use_kernels = backend == "kernels" or (
-            backend == "auto" and proj.mean2d.device.type == "cuda")
         if use_kernels:
             with tracing.span("render.bin"):
                 if pair_capacity is None:

@@ -15,9 +15,12 @@ import socket
 import time
 
 import numpy as np
+import torch
 
 from ..core import cameras as camlib
 from ..core import sh as shlib
+from ..device import resolve_device
+from ..models import gaussians as gm
 from ..ops import binning, projection
 
 
@@ -58,6 +61,164 @@ def random_gaussians(seed: int, n: int, sh_degree: int = 3,
     sh[:, :3] = shlib.rgb_to_sh(rng.uniform(0.05, 0.95, (n, 3)).astype(f32))
     return dict(means=means, scales=scales, quats=quats, opacities=opac,
                 sh=sh.astype(f32))
+
+
+def captured_store(seed: int, n: int, sh_degree: int = 3,
+                   active_sh_degree: int | None = None, device=None):
+    """A store of `n` rows in the storage spaces, shaped as a captured
+    scene, drawn with numpy from `seed`: 85 % of the positions uniform in
+    the unit ball, the rest in a shell of radii 3-8; log-normal scales
+    (medians 0.005 inside, 0.03 outside, sigma 0.5); quaternions N(0, 1);
+    opacity logits N(0, 1.5^2); SH DC N(0, 0.6^2), the higher bands
+    N(0, 0.05^2). Every row active; on `device` (the card unless the caller
+    names the CPU)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    core = rng.random(n) < 0.85
+    d = rng.standard_normal((n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    radius = np.where(core, rng.random(n) ** (1 / 3),
+                      rng.uniform(3.0, 8.0, n))
+    scale = np.log(np.where(core, 0.005, 0.03))[:, None] \
+        + 0.5 * rng.standard_normal((n, 3))
+    k = shlib.num_sh_bases(sh_degree)
+    params = {
+        "xyz": d * radius[:, None], "scaling": scale,
+        "rotation": rng.standard_normal((n, 4)),
+        "opacity": 1.5 * rng.standard_normal((n, 1)),
+        "features_dc": 0.6 * rng.standard_normal((n, 3)),
+        "features_rest": 0.05 * rng.standard_normal((n, 3 * (k - 1))),
+        "exposure": np.eye(3, 4)[None]}
+    dev = resolve_device(device)
+    t = {name: torch.as_tensor(v.astype(f32), device=dev)
+         for name, v in params.items()}
+    return gm.GaussianState(
+        params=gm.GaussianParams(**t),
+        active=torch.ones(n, dtype=torch.bool, device=dev),
+        active_sh_degree=(sh_degree if active_sh_degree is None
+                          else active_sh_degree),
+        max_sh_degree=sh_degree)
+
+
+def ring_camera(angle: float, width: int, height: int, focal: float,
+                radius: float = 2.2, rise: float = 0.4,
+                device=None) -> camlib.Camera:
+    """A view from a ring of `radius` at height `rise` around the origin,
+    at `angle` radians, looking at the origin with a `focal`-pixel lens."""
+    eye = (radius * math.cos(angle), -rise, radius * math.sin(angle))
+    return look_at_camera(eye, fovx=camlib.focal_to_fov(focal, width),
+                          width=width, height=height, device=device)
+
+
+# The rows of edge_store: the cull's edges and an inactive row.
+AT_NEAR, PAST_NEAR, AT_ZERO, BEHIND, FLAT, INACTIVE = range(6)
+
+
+def axis_camera(wh: int = 64, device=None) -> camlib.Camera:
+    """A square view from the origin down +z, 60 degrees wide: camera space
+    is world space, and the focal lengths are equal."""
+    fov = math.radians(60)
+    return camlib.make_camera(np.eye(3), np.zeros(3), fov, fov, wh, wh,
+                              device=device)
+
+
+def edge_store(seed: int, degree: int, n: int = 256, device=None):
+    """`n` rows before :func:`axis_camera`, SH bands to 3 (`degree`
+    active), every seventh row inactive, and rows 0-5 at the cull's edges:
+    camera z exactly 0.2 (culled), the next f32 above it (kept), z = 0
+    (culled; inf and NaN in the geometry), z = -1, a Gaussian whose
+    dilated 2D covariance has det exactly 0 (culled: a needle along the
+    view axis at x = y, its 2D covariance L (1 1; 1 1) with L so large that
+    L + 0.3 rounds to L), and an inactive row in view."""
+    st = captured_store(seed, n, active_sh_degree=degree, device="cpu")
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(1.0, 6.0, n)
+    xyz = np.stack([rng.uniform(-0.5, 0.5, n) * z,
+                    rng.uniform(-0.5, 0.5, n) * z, z], 1).astype(np.float32)
+    xyz[AT_NEAR] = (0.0, 0.0, np.float32(0.2))
+    xyz[PAST_NEAR] = (0.0, 0.0, np.nextafter(np.float32(0.2), np.float32(1)))
+    xyz[AT_ZERO] = (0.1, 0.0, 0.0)
+    xyz[BEHIND] = (0.0, 0.0, -1.0)
+    xyz[FLAT] = (0.6, 0.6, 2.0)
+    p = st.params
+    scaling, rotation = p.scaling.clone(), p.rotation.clone()
+    scaling[FLAT] = torch.tensor([-60.0, -60.0, 10.0])
+    rotation[FLAT] = torch.tensor([1.0, 0.0, 0.0, 0.0])
+    active = torch.arange(n) % 7 != 6
+    active[INACTIVE] = False
+    dev = resolve_device(device)
+    params = p.replace(xyz=torch.from_numpy(xyz), scaling=scaling,
+                       rotation=rotation)
+    return gm.GaussianState(
+        params=gm.GaussianParams(**{k: v.to(dev)
+                                    for k, v in vars(params).items()}),
+        active=active.to(dev), active_sh_degree=degree, max_sh_degree=3)
+
+
+def bf16_steps(a, b):
+    """How many bf16 values apart two bf16-rounded f32 tensors lie: their
+    bits on a line where adjacent floats are adjacent integers, over 2^16."""
+    def ordered(x):
+        u = x.view(torch.int32).to(torch.int64)
+        return torch.where(u < 0, -(u & 0x7FFFFFFF), u)
+    return (ordered(a) - ordered(b)).abs() / 65536
+
+
+def projection_gaps(got, want, state, camera) -> dict:
+    """K8's projection `got` (``ops/projection.py::project_state``) of
+    `state` from `camera` against its plain version's `want`: the rows
+    whose cull differs, those both keep at another radius and the largest
+    radius gap, those both keep at another depth (K8 fuses the products'
+    terms as cuBLAS does, so none: the binning's depth order is the plain
+    version's), the largest gap of a rounded output on the rows both keep
+    (``max_abs``), and per field the worst gap over its tolerance (1 at the
+    tolerance) on the rows both keep (the colour: on every row).
+
+    Tolerances. PyTorch's reductions (the quaternion's and the direction's
+    norms, the covariance's and the SH colour's sums) and its
+    matrix-vector product (the mean's w) may sum in another order than
+    K8's left to right. So the pixel mean is held to 8 f32 ulps of the
+    magnitudes its products sum, carried through 1/w and the pixel scale,
+    plus 8 ulps of the value; a rounded output to one bf16 step where both
+    values round to neighbours. Where a value is small beside the terms it
+    is summed from, an error of f32 ulps of the terms is many bf16 steps of
+    the value: a conic entry is held to one bf16 step of its row's largest
+    entry (the terms' scale), and a colour near the clamp at 0 to 2^-12
+    (a thousand f32 ulps of the SH terms, which lie under 4)."""
+    ulp = 2.0 ** -24
+    kept_g, kept_w = got.radius > 0, want.radius > 0
+    both = kept_g & kept_w
+    out = {"cull_moved": int((kept_g != kept_w).sum()),
+           "radius_moved": int((got.radius != want.radius)[both].sum()),
+           "radius_gap": int((got.radius - want.radius).abs().max()),
+           "depth_moved": int((got.depth.view(torch.int32)
+                               != want.depth.view(torch.int32))[both].sum()),
+           "max_abs": max(float((getattr(got, name)[both]
+                                 - getattr(want, name)[both]).abs().max())
+                          for name in ("conic", "opacity", "rgb",
+                                       "invdepth"))}
+    x = state.params.xyz[both]
+    fp = camera.full_proj
+    terms = x.abs() @ fp.abs()[[0, 1, 3], :3].T + fp.abs()[[0, 1, 3], 3]
+    w = (x @ fp[3, :3] + fp[3, 3]).abs()[:, None]
+    size = torch.tensor([camera.width, camera.height], dtype=torch.float32,
+                        device=x.device)
+    m = want.mean2d[both]
+    ndc = ((2 * m + 1) / size - 1).abs()
+    tol = 8 * ulp * (size / 2 * (terms[:, :2] + ndc * terms[:, 2:]) / w
+                     + m.abs() + size)
+    out["mean2d"] = float(((got.mean2d[both] - m).abs() / tol).max())
+    for name in ("opacity", "invdepth"):
+        out[name] = float(bf16_steps(getattr(got, name)[both],
+                                     getattr(want, name)[both]).max())
+    g, w = got.conic[both], want.conic[both]
+    step = 2.0 ** -7 * torch.maximum(g.abs(), w.abs()).amax(1, keepdim=True)
+    out["conic"] = float(torch.where(
+        bf16_steps(g, w) <= 1, 0.0, (g - w).abs() / step).max())
+    g, w = got.rgb, want.rgb
+    out["rgb"] = float(torch.where(
+        bf16_steps(g, w) <= 1, 0.0, (g - w).abs() / 2.0 ** -12).max())
+    return out
 
 
 def enumerate_slots(proj, width: int, height: int) -> np.ndarray:
