@@ -134,11 +134,19 @@ def to_levels(image: torch.Tensor) -> torch.Tensor:
     return (torch.clamp(image, 0, 1) * 255).to(torch.uint8).permute(1, 2, 0)
 
 
-def level_gap(levels: torch.Tensor, ref: torch.Tensor) -> float:
-    """Worst |level + 0.5 - 255 ref| over the image: 0.5 at most where the
-    delivered levels are the reference's own, truncated."""
+def level_gap(levels: torch.Tensor, ref: torch.Tensor,
+              spare: float = 0.0) -> float:
+    """The gap, in 1/255 levels, that all but the worst `spare` share of the
+    image's pixels stay within: the (floor(spare x pixels) + 1)-th largest
+    pixel gap, a pixel's gap being its worst channel's
+    |level + 0.5 - 255 ref|, which is 0.5 at most where the delivered
+    levels are the reference's own, truncated. `spare` 0 gives the worst
+    pixel's gap; a NaN anywhere gives NaN."""
     got = levels.permute(2, 0, 1).float() + 0.5
-    return float((got - 255.0 * ref.float()).abs().max())
+    gap = (got - 255.0 * ref.float()).abs().amax(0).flatten()
+    if bool(torch.isnan(gap).any()):
+        return math.nan
+    return float(torch.topk(gap, int(spare * gap.numel()) + 1).values[-1])
 
 
 def worst(values) -> float:

@@ -6,4 +6,4 @@ from benchmark import spans
 
 
 def read(r):
-    return spans.device_ms_per_unit(r, "render.bin")
+    return spans.device_ms_per_unit(r, "eval", "render.bin")

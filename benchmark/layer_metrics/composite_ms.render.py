@@ -5,4 +5,4 @@ from benchmark import spans
 
 
 def read(r):
-    return spans.device_ms_per_unit(r, "render.composite")
+    return spans.device_ms_per_unit(r, "eval", "render.composite")

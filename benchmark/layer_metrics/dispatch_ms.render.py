@@ -5,4 +5,4 @@ from benchmark import spans
 
 
 def read(r):
-    return spans.host_ms_per_unit(r, "eval")
+    return spans.host_ms_per_unit(r, "eval", "eval")

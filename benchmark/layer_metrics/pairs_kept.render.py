@@ -6,8 +6,8 @@ from benchmark import spans
 
 
 def read(r):
-    valid = spans.count_total(r, "render.bin", "pairs.valid")
-    rect = spans.count_total(r, "render.bin", "pairs.rect")
+    valid = spans.count_total(r, "eval", "render.bin", "pairs.valid")
+    rect = spans.count_total(r, "eval", "render.bin", "pairs.rect")
     if valid is None or not rect:
         return None
     return 100.0 * valid / rect

@@ -71,7 +71,7 @@ def test_every_cell_loads_by_name(workload):
     assert conf["file"] == f"benchmark/configs/{wl['config']}.json"
     assert conf["reduced"] == []
     _, _, limits = _cell_files(wl)
-    assert set(limits) == {"image_gap"}
+    assert set(limits) == {"image_gap_p9999"}
     e2e = harness.cell_metrics(SPEC, workload, "end_to_end")
     layer = harness.cell_metrics(SPEC, workload, "per_layer")
     assert "setup_s" in {m["name"] for m in e2e} and len(e2e) >= 2

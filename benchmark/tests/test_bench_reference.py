@@ -115,6 +115,24 @@ def test_a_nan_reading_is_never_passed_over():
     assert math.isnan(drivers.worst([1.0, float("nan")]))
 
 
+def test_the_pixel_gap_passes_over_only_its_share():
+    """At 10,000 pixels the 0.01 % spared is one pixel: a second pixel off
+    counts, and so does a NaN anywhere."""
+    ref = torch.full((3, 100, 100), 0.5)
+    levels = drivers.to_levels(ref)
+    base = drivers.level_gap(levels, ref)
+    assert base <= 0.5
+    off = levels.clone()
+    off[3, 4, 1] = 0
+    assert drivers.level_gap(off, ref) > 100
+    assert drivers.level_gap(off, ref, 1e-4) == base
+    off[7, 9, 2] = 200
+    assert drivers.level_gap(off, ref, 1e-4) == pytest.approx(200.5 - 127.5)
+    bad = ref.clone()
+    bad[0, 50, 50] = math.nan
+    assert math.isnan(drivers.level_gap(levels, bad, 1e-4))
+
+
 def test_inputs_are_made_again_alike():
     cfg = tiny_config("m360-mean-3m")
     a = inputs.leaf(cfg, SEED, "scaling", "cpu")

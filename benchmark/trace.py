@@ -5,7 +5,10 @@ Device time is the union of the device's activity intervals (kernels,
 copies, sets), so that overlapping kernels count once. Host time is the
 self time of the main thread's operations, less the calls that only wait
 for the device. Idle gaps are the stretches between device intervals,
-each named by the innermost host operation running at its start.
+each named by the innermost host operation running at its start. Each
+device operation is also kept with the host time of the runtime call that
+launched it (matched by the profiler's correlation id), for the readers of
+the work a program span launched.
 """
 
 from __future__ import annotations
@@ -28,13 +31,14 @@ class Span:
 
     def __init__(self, prof, wall_s: float):
         from torch.autograd import DeviceType
-        dev, cpu = [], {}
+        dev, cpu, runtime, ids = [], {}, {}, []
         self.kernels = {}
         self.launches = 0
         for e in prof.events():
             start, end = e.time_range.start, e.time_range.end
             if e.device_type == DeviceType.CUDA:
                 dev.append((start, end))
+                ids.append(e.id)
                 acc = self.kernels.setdefault(e.name, [0.0, 0])
                 acc[0] += (end - start) / 1e6
                 acc[1] += 1
@@ -42,6 +46,8 @@ class Span:
                     self.launches += 1
             else:
                 cpu.setdefault(e.thread, []).append(e)
+                if e.name.startswith("cu"):
+                    runtime[e.id] = start
         # The main thread is the one that dispatched the most operations.
         host = max(cpu.values(), key=len) if cpu else []
         self.wall_s = wall_s
@@ -55,6 +61,20 @@ class Span:
         self.host_s = sum(e.self_cpu_time_total for e in host
                           if e.name not in WAITS) / 1e6
         self.gaps = self._gaps(merged, host)
+        self.launched, self.unlinked = self._launched(prof, dev, ids,
+                                                      runtime)
+
+    @staticmethod
+    def _launched(prof, dev, ids, runtime):
+        """([(launch, start, end) ns on the profiler's clock, ordered by
+        launch], how many device operations had no launch to match)."""
+        if not dev:
+            return [], 0
+        base = prof.profiler.kineto_results.trace_start_ns()
+        got = sorted((base + 1000 * runtime[i], base + 1000 * s,
+                      base + 1000 * e)
+                     for (s, e), i in zip(dev, ids) if i in runtime)
+        return got, len(dev) - len(got)
 
     @staticmethod
     def _gaps(merged, host, keep: int = 10):
